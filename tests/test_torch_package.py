@@ -1,0 +1,84 @@
+"""Package rules of the PyTorch port: no JAX anywhere in it or in
+``chip_smoke.py``, no Triton imported at module level, and entry points
+that create tensors default to CUDA and raise where there is none."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpu_dra_driver_torch.workloads import convert
+from tpu_dra_driver_torch.workloads.models import generate, serving
+from tpu_dra_driver_torch.workloads.models import transformer
+from tpu_dra_driver_torch.workloads.ops import paged_attention
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes",
+             "tpu_dra_driver")
+
+
+def _port_files():
+    files = sorted((REPO / "tpu_dra_driver_torch").rglob("*.py"))
+    assert len(files) >= 10
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imports(tree):
+    """(module name, is at module level) for every import in ``tree``."""
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module, id(node) in top
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax_and_no_module_level_triton(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, top_level in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path}: imports {name}"
+        assert not (root == "triton" and top_level), \
+            f"{path}: imports triton at module level"
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default is usable")
+    cfg = transformer.ModelConfig(vocab=16, d_model=8, n_heads=2,
+                                  n_layers=1, d_ff=16, max_seq=8,
+                                  dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paged_attention.init_pool(4, 8, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate.init_kv_cache(cfg, 1, 8)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.ServingEngine(params, cfg, n_blocks=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax({"embed": params["embed"].numpy()})
+
+
+def test_chip_smoke_fails_without_cuda_or_without_the_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    runs = [(REPO, REPO / "chip_smoke.py")]
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    runs.append((tmp_path, alone))
+    for cwd, script in runs:
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0, proc.stdout
+        assert '"ok"' not in proc.stdout

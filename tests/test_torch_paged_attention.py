@@ -1,0 +1,150 @@
+"""Port parity for the paged KV cache: ``pool_append``, the oracle, and
+``paged_decode_attention`` (CPU tensors take the kernel's plain version)
+against the JAX Pallas kernel run in interpret mode.
+
+Tolerances: fp32 compares to 1e-5 (summation order of a few dozen
+terms differs between the online softmax and the plain one); bf16 to
+2e-2, since P is rounded to bf16 against the running max in the JAX
+kernel and against the final max in the plain version, about one bf16
+ulp (2^-8) of each weight.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_dra_driver.workloads.ops import paged_attention as jpa
+from tpu_dra_driver_torch.workloads.ops import paged_attention as tpa
+
+B, H, H_KV, HD, BLOCK_T, N_BLOCKS, MAX_BLOCKS = 4, 4, 2, 16, 8, 16, 6
+TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _case(lens, seed=0, garbage=True):
+    """Random pools with each row's live blocks at shuffled physical ids
+    (block 0 stays the null block) and, when ``garbage``, table entries
+    past the live range that are not valid block ids."""
+    rng = np.random.default_rng(seed)
+    pool_k = rng.standard_normal((N_BLOCKS, H_KV, BLOCK_T, HD)).astype(
+        np.float32)
+    pool_v = rng.standard_normal(pool_k.shape).astype(np.float32)
+    q = rng.standard_normal((B, H, 1, HD)).astype(np.float32)
+    phys = iter(rng.permutation(np.arange(1, N_BLOCKS)))
+    table = np.zeros((B, MAX_BLOCKS), np.int32)
+    for i, n in enumerate(lens):
+        live = -(-n // BLOCK_T)
+        for j in range(live):
+            table[i, j] = next(phys)
+        if garbage:
+            table[i, max(live, 1):] = 10_000 + i
+    return q, pool_k, pool_v, table, np.asarray(lens, np.int32)
+
+
+def _jax_kernel(q, pk, pv, table, lens, n_live, dtype=jnp.float32):
+    out = jpa.paged_decode_attention(
+        jnp.asarray(q, dtype), jnp.asarray(pk, dtype), jnp.asarray(pv, dtype),
+        jnp.asarray(table), jnp.asarray(lens), interpret=True,
+        n_live_blocks=n_live)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port(q, pk, pv, table, lens, n_live, dtype=torch.float32):
+    def t(a):
+        return torch.from_numpy(a).to(dtype)
+    return tpa.paged_decode_attention(
+        t(q), t(pk), t(pv), torch.from_numpy(table), torch.from_numpy(lens),
+        n_live_blocks=n_live).float().numpy()
+
+
+@pytest.mark.parametrize("lens,n_live", [
+    ((0, 8, 13, 21), 4),      # a length-0 row, a row on a block edge
+    ((16, 1, 24, 7), 3),      # every live block walked, edges at 16 and 24
+])
+def test_kernel_path_matches_pallas_kernel_fp32(lens, n_live):
+    case = _case(lens)
+    launches = tpa.paged_decode_attention.launches
+    got = _port(*case, n_live)
+    assert tpa.paged_decode_attention.launches == launches  # CPU: no kernel
+    want = _jax_kernel(*case, n_live)
+    np.testing.assert_allclose(got, want, **TOL[np.float32])
+    q, pk, pv, table, jlens = case
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any(), "a length-0 row gives 0"
+            table = table.copy()
+            table[i, 0] = 10_000        # not followed: the row reads nothing
+    np.testing.assert_array_equal(_port(q, pk, pv, table, jlens, n_live),
+                                  got)
+
+
+def test_kernel_path_matches_pallas_kernel_bf16():
+    case = _case((5, 0, 17, 24), seed=1)
+    got = _port(*case, 4, dtype=torch.bfloat16)
+    want = _jax_kernel(*case, 4, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(got, want, **TOL["bfloat16"])
+
+
+def test_n_live_blocks_truncates_like_the_pallas_kernel():
+    # the caller contract is max(lens) <= n_live_blocks * block_t; past it
+    # both walk only n_live_blocks columns
+    case = _case((20, 9, 3, 12), seed=2)
+    np.testing.assert_allclose(_port(*case, 2), _jax_kernel(*case, 2),
+                               **TOL[np.float32])
+
+
+def test_reference_oracle_matches_jax_oracle_including_empty_rows():
+    q, pk, pv, table, lens = _case((0, 8, 13, 21), seed=3, garbage=False)
+    want = jpa.paged_attention_reference(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(table), jnp.asarray(lens))
+    got = tpa.paged_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
+        torch.from_numpy(table), torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL[np.float32])
+    # the oracle's length-0 row is softmax's uniform mean, not 0; every
+    # other row agrees with the kernel path
+    assert got[0].abs().sum() > 0
+    kern = _port(q, pk, pv, table, lens, MAX_BLOCKS)
+    np.testing.assert_allclose(kern[1:], got.numpy()[1:], **TOL[np.float32])
+
+
+def test_pool_append_matches_reference():
+    rng = np.random.default_rng(4)
+    pk, pv = (rng.standard_normal((N_BLOCKS, H_KV, BLOCK_T, HD)).astype(
+        np.float32) for _ in range(2))
+    table = np.zeros((B, MAX_BLOCKS), np.int32)
+    table[0, :2] = [3, 7]
+    table[1, :3] = [2, 9, 4]
+    table[3, :1] = [11]                   # row 2 inactive: null block
+    lens = np.array([8, 17, 0, 5], np.int32)
+    k, v = (rng.standard_normal((B, H_KV, HD)).astype(np.float32)
+            for _ in range(2))
+    jk, jv = jpa.pool_append(jnp.asarray(pk), jnp.asarray(pv),
+                             jnp.asarray(table), jnp.asarray(lens),
+                             jnp.asarray(k), jnp.asarray(v))
+    tk, tv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
+    out = tpa.pool_append(tk, tv, torch.from_numpy(table),
+                          torch.from_numpy(lens), torch.from_numpy(k),
+                          torch.from_numpy(v))
+    assert out[0] is tk and out[1] is tv          # updated in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_init_pool_and_argument_checks():
+    pk, pv = tpa.init_pool(5, 8, 2, 16, torch.float32, device="cpu")
+    assert pk.shape == (5, 2, 8, 16) and not pk.any() and not pv.any()
+    q, pk_, pv_, table, lens = (torch.from_numpy(a)
+                                for a in _case((3, 4, 5, 6)))
+    with pytest.raises(ValueError, match="n_live_blocks"):
+        tpa.paged_decode_attention(q, pk_, pv_, table, lens, n_live_blocks=7)
+    with pytest.raises(ValueError, match="g=1"):
+        tpa.paged_decode_attention(q.expand(B, H, 2, HD), pk_, pv_, table,
+                                   lens)
+    # neither CPU nor CUDA: the wrapper raises rather than picking a path
+    meta = [t.to("meta") for t in (q, pk_, pv_, table, lens)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        tpa.paged_decode_attention(*meta)

@@ -1,0 +1,391 @@
+"""Continuous-batching serving engine over the paged KV cache.
+
+Port of :mod:`tpu_dra_driver.workloads.models.serving`. A fixed-capacity
+batch of rows, each one in-flight request with its own block table into
+shared per-layer K/V pools; requests join mid-flight (prefill into
+freshly allocated blocks), decode steps run for all active rows at once,
+and finished requests free their blocks.
+
+- device: ``paged_decode_step(s)`` embed the pending tokens, project,
+  apply RoPE at per-row positions, append one K/V vector per row to the
+  pools and read them through ``paged_decode_attention`` (the CUDA
+  kernel on the card);
+- host (``ServingEngine``): block allocation, table/lens bookkeeping,
+  admission, completion.
+
+The pools are updated in place (the reference donates them to each jit
+call instead), so a call that fails part-way leaves them in an unknown
+state: any exception raised by the device work of ``add``, ``step`` or
+``step_chunk`` poisons the engine and later calls raise.
+``serving_throughput`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tpu_dra_driver_torch.workloads import resolve_device
+from tpu_dra_driver_torch.workloads.models.generate import (
+    block_prefill, init_kv_cache,
+)
+from tpu_dra_driver_torch.workloads.models.quantize import (
+    embed_lookup, lm_head, mm,
+)
+from tpu_dra_driver_torch.workloads.models.transformer import (
+    ModelConfig,
+    Params,
+    _ffn,
+    _rmsnorm,
+    apply_rope,
+    unstack_layer_params,
+)
+from tpu_dra_driver_torch.workloads.ops.paged_attention import (
+    init_pool,
+    paged_decode_attention,
+    pool_append,
+)
+
+
+def _decode_core(params, cfg: ModelConfig, pool_ks, pool_vs,
+                 tables, lens, tokens, n_live_blocks=None):
+    """One decode step for every row: tokens [B] at per-row positions
+    ``lens`` → (logits [B, vocab] fp32, pool_ks, pool_vs), the pools
+    appended in place. Rows whose table row is 0 (inactive) write into
+    the null block and their logits are garbage the host ignores."""
+    b = tokens.shape[0]
+    n_kv = cfg.n_kv_heads or cfg.n_heads
+    hd = cfg.d_model // cfg.n_heads
+    kv_d = hd * n_kv
+
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)[:, None]  # [B,1,d]
+    if not cfg.use_rope:
+        # caller contract: lens < max_seq; an index past the table raises
+        # rather than reusing a clamped row
+        x = x + params["pos_embed"][lens.long()][:, None]
+
+    params = unstack_layer_params(params)
+    for li, layer in enumerate(params["layers"]):
+        xn = _rmsnorm(x, layer["ln1"]["g"])
+        qkv = mm(xn, layer["wqkv"])
+        q, k, v = qkv.split([cfg.d_model, kv_d, kv_d], dim=-1)
+        q = q.reshape(b, 1, cfg.n_heads, hd).transpose(1, 2)
+        k = k.reshape(b, 1, n_kv, hd).transpose(1, 2)
+        v = v.reshape(b, 1, n_kv, hd).transpose(1, 2)
+        if cfg.use_rope:
+            q = apply_rope(q, pos0=lens)
+            k = apply_rope(k, pos0=lens)
+        pool_append(pool_ks[li], pool_vs[li], tables, lens,
+                    k[:, :, 0], v[:, :, 0])
+        att = paged_decode_attention(q.contiguous(), pool_ks[li],
+                                     pool_vs[li], tables, lens + 1,
+                                     n_live_blocks=n_live_blocks)
+        att = att.transpose(1, 2).reshape(b, 1, cfg.d_model)
+        x = x + mm(att, layer["wo"])
+        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg)
+
+    x = _rmsnorm(x, params["final_norm"]["g"])
+    logits = lm_head(x, params["embed"])[:, 0]
+    return logits, pool_ks, pool_vs
+
+
+@torch.no_grad()
+def paged_decode_step(params, cfg: ModelConfig, pool_ks, pool_vs,
+                      tables, lens, tokens, n_live_blocks=None):
+    """Single-step entry point (pools appended in place)."""
+    return _decode_core(params, cfg, pool_ks, pool_vs, tables, lens,
+                        tokens, n_live_blocks=n_live_blocks)
+
+
+@torch.no_grad()
+def paged_decode_steps(params, cfg: ModelConfig, pool_ks, pool_vs,
+                       tables, lens, tokens, n_steps: int,
+                       n_live_blocks=None):
+    """``n_steps`` greedy decode steps: each step's argmax is fed back as
+    the next token without leaving the device. Returns (tokens [B,
+    n_steps] int32 on the device, pool_ks, pool_vs); the caller copies
+    the tokens to the host once per chunk. Callers bound ``n_steps`` so
+    no active row appends past its block allocation."""
+    out = []
+    toks = tokens
+    for _ in range(n_steps):
+        logits, pool_ks, pool_vs = _decode_core(
+            params, cfg, pool_ks, pool_vs, tables, lens, toks,
+            n_live_blocks=n_live_blocks)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(toks)
+        lens = lens + 1
+    return torch.stack(out, dim=1), pool_ks, pool_vs
+
+
+@torch.no_grad()
+def _admit_prefill(params, tokens, pool_ks, pool_vs, blocks,
+                   cfg: ModelConfig, block_t: int, true_len=None):
+    """Admission: dense prompt prefill through ``block_prefill``, then
+    each layer's K/V written into the allocated pool blocks (in place).
+    Returns (last_logits [1, vocab], pool_ks, pool_vs).
+
+    ``tokens`` [1, t_bucket] and ``blocks`` [nb_bucket] are padded to
+    buckets by the engine; ``true_len`` puts the logits on the real last
+    token (causality shields it from the right-padding). The padded
+    tail's K/V land past the written blocks, in slots that lens hides
+    and the next appends overwrite, or in the null block (padded table
+    entries are 0), which nothing reads."""
+    t0 = tokens.shape[1]
+    nb = blocks.shape[0]
+    cache = init_kv_cache(cfg, 1, t0, device=tokens.device)
+    last_logits, cache, _ = block_prefill(
+        params, cfg, cache, tokens,
+        last_index=None if true_len is None else int(true_len) - 1)
+    blocks = blocks.long()
+    for li in range(cfg.n_layers):
+        for pool, kv in ((pool_ks[li], cache["k"][li][0]),
+                         (pool_vs[li], cache["v"][li][0])):
+            h_kv, length, hd = kv.shape        # [h_kv, Lpad, hd]
+            pad = nb * block_t - length
+            if pad > 0:
+                kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
+            tiles = kv[:, :nb * block_t].reshape(h_kv, nb, block_t, hd)
+            pool[blocks] = tiles.transpose(0, 1).to(pool.dtype)
+    return last_logits, pool_ks, pool_vs
+
+
+@dataclass
+class _Request:
+    rid: int
+    row: int
+    remaining: int
+    tokens: List[int] = field(default_factory=list)   # generated so far
+    pending: int = 0                                  # next token to feed
+
+
+class ServingEngine:
+    """Fixed-capacity continuous-batching decoder on ``device``. Not
+    thread-safe; the caller owns the step loop (``run`` is the
+    batteries-included version)."""
+
+    # chunk sizes of the multi-step path, as in the reference
+    CHUNK_SIZES = (32, 16, 8, 4, 2)
+
+    def __init__(self, params: Params, cfg: ModelConfig, n_blocks: int,
+                 block_t: int = 128, max_batch: int = 8,
+                 max_blocks_per_seq: int = 32, device="cuda"):
+        if cfg.window > 0 or cfg.prefix > 0:
+            raise ValueError("ServingEngine supports causal full-cache "
+                             "models (window == 0, prefix == 0)")
+        if cfg.kv_int8:
+            raise ValueError("ServingEngine pools are not quantized; "
+                             "cfg.kv_int8 would silently diverge from "
+                             "generate() — use int8 weights instead")
+        self.device = resolve_device(device)
+        self.params, self.cfg = params, cfg
+        self.block_t = block_t
+        n_kv = cfg.n_kv_heads or cfg.n_heads
+        hd = cfg.d_model // cfg.n_heads
+        self.pool_ks, self.pool_vs = [], []
+        for _ in range(cfg.n_layers):
+            pk, pv = init_pool(n_blocks, block_t, n_kv, hd, cfg.dtype,
+                               device=self.device)
+            self.pool_ks.append(pk)
+            self.pool_vs.append(pv)
+        self.free = list(range(n_blocks - 1, 0, -1))   # block 0 = null
+        self.tables = np.zeros((max_batch, max_blocks_per_seq), np.int32)
+        self.lens = np.zeros((max_batch,), np.int32)
+        self.rows: List[Optional[_Request]] = [None] * max_batch
+        self._next_rid = 0
+        self.finished: Dict[int, List[int]] = {}
+        self._poisoned: Optional[str] = None
+
+    def _check_alive(self) -> None:
+        if self._poisoned:
+            raise RuntimeError(f"ServingEngine poisoned: {self._poisoned}")
+
+    def _live_blocks_bucket(self, extra_tokens: int) -> int:
+        """Bound on the paged-attention block walk: enough blocks to cover
+        every active row's length after ``extra_tokens`` more appends,
+        bucketed to a power of two and capped at the table width."""
+        max_len = int(max((int(self.lens[r.row]) for r in self.rows
+                           if r is not None), default=0))
+        need = max(1, -(-(max_len + extra_tokens) // self.block_t))
+        bucket = 1 << (need - 1).bit_length()
+        return min(bucket, self.tables.shape[1])
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # -- admission -------------------------------------------------------
+    def add(self, prompt: List[int], max_new_tokens: int) -> int:
+        """Prefill + admit one request; returns its request id. Raises
+        RuntimeError when no row or not enough blocks are free."""
+        self._check_alive()
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        t0 = len(prompt)
+        if t0 == 0:
+            raise ValueError("prompt must be non-empty")
+        if not self.cfg.use_rope and t0 + max_new_tokens > self.cfg.max_seq:
+            raise ValueError(f"t0+max_new_tokens ({t0 + max_new_tokens}) "
+                             f"exceeds max_seq {self.cfg.max_seq}")
+        need = -(-(t0 + max_new_tokens) // self.block_t)
+        if need > self.tables.shape[1]:
+            raise RuntimeError(f"request needs {need} blocks > "
+                               f"max_blocks_per_seq {self.tables.shape[1]}")
+        row = next((i for i, r in enumerate(self.rows) if r is None), None)
+        if row is None:
+            raise RuntimeError("batch full")
+        if len(self.free) < need:
+            raise RuntimeError("pool exhausted")
+
+        # admission shapes are bucketed as in the reference (prompt length
+        # to max(32, pow2), prompt blocks to pow2); padded table entries
+        # are 0 = the null block
+        n_prompt = -(-t0 // self.block_t)
+        t_bucket = max(32, 1 << (t0 - 1).bit_length())
+        if not self.cfg.use_rope:
+            t_bucket = min(t_bucket, self.cfg.max_seq)
+        nb_bucket = max(1, 1 << (n_prompt - 1).bit_length())
+        toks = np.asarray(list(prompt) + [0] * (t_bucket - t0),
+                          np.int32)[None]
+        blocks = [self.free.pop() for _ in range(need)]
+        try:
+            padded_blocks = np.asarray(
+                blocks[:n_prompt] + [0] * (nb_bucket - n_prompt), np.int32)
+            last_logits, self.pool_ks, self.pool_vs = _admit_prefill(
+                self.params, self._to_device(toks), self.pool_ks,
+                self.pool_vs, self._to_device(padded_blocks), self.cfg,
+                self.block_t, true_len=t0)
+            first = int(torch.argmax(last_logits))
+        except BaseException:
+            self.free.extend(reversed(blocks))
+            self._poisoned = ("admission failed while writing the pools; "
+                              "engine state is unrecoverable")
+            raise
+        self.tables[row, :need] = blocks
+        self.tables[row, need:] = 0
+        self.lens[row] = t0
+
+        req = _Request(rid=self._next_rid, row=row,
+                       remaining=max_new_tokens)
+        self._next_rid += 1
+        req.tokens.append(first)
+        req.remaining -= 1
+        req.pending = first
+        self.rows[row] = req
+        if req.remaining == 0:
+            self._finish(req)
+        return req.rid
+
+    # -- stepping --------------------------------------------------------
+    def _pending_tokens(self, active: List[_Request]) -> np.ndarray:
+        tokens = np.zeros((len(self.rows),), np.int32)
+        for r in active:
+            tokens[r.row] = r.pending
+        return tokens
+
+    def step(self) -> Dict[int, int]:
+        """One batched decode step; returns {rid: new_token} for rows
+        that produced one. No-op on an idle engine."""
+        self._check_alive()
+        active = [r for r in self.rows if r is not None]
+        if not active:
+            return {}
+        tokens = self._pending_tokens(active)
+        try:
+            logits, self.pool_ks, self.pool_vs = paged_decode_step(
+                self.params, self.cfg, self.pool_ks, self.pool_vs,
+                self._to_device(self.tables), self._to_device(self.lens),
+                self._to_device(tokens),
+                n_live_blocks=self._live_blocks_bucket(1))
+            picked = torch.argmax(logits, dim=-1).cpu().numpy()
+        except BaseException:
+            self._poisoned = ("decode step failed while appending to the "
+                              "pools; engine state is unrecoverable")
+            raise
+        out: Dict[int, int] = {}
+        for r in active:
+            self.lens[r.row] += 1
+            tok = int(picked[r.row])
+            r.tokens.append(tok)
+            r.pending = tok
+            r.remaining -= 1
+            out[r.rid] = tok
+            if r.remaining == 0:
+                self._finish(r)
+        return out
+
+    def step_chunk(self, max_steps: int = 32) -> Dict[int, List[int]]:
+        """Up to ``max_steps`` decode steps with the argmax fed back on the
+        device. The chunk length is the largest of CHUNK_SIZES <=
+        min(max_steps, min remaining over active rows), so no row appends
+        past its allocation or finishes mid-chunk; a bound of 1 takes
+        step(). Returns {rid: new tokens}."""
+        self._check_alive()
+        active = [r for r in self.rows if r is not None]
+        if not active:
+            return {}
+        bound = min(max_steps, min(r.remaining for r in active))
+        k = next((c for c in self.CHUNK_SIZES if c <= bound), 1)
+        if k <= 1:
+            return {rid: [tok] for rid, tok in self.step().items()}
+        tokens = self._pending_tokens(active)
+        try:
+            toks, self.pool_ks, self.pool_vs = paged_decode_steps(
+                self.params, self.cfg, self.pool_ks, self.pool_vs,
+                self._to_device(self.tables), self._to_device(self.lens),
+                self._to_device(tokens), n_steps=k,
+                n_live_blocks=self._live_blocks_bucket(k))
+            toks = toks.cpu().numpy()
+        except BaseException:
+            self._poisoned = ("decode chunk failed while appending to the "
+                              "pools; engine state is unrecoverable")
+            raise
+        out: Dict[int, List[int]] = {}
+        for r in active:
+            got = [int(t) for t in toks[r.row]]
+            self.lens[r.row] += k
+            r.tokens.extend(got)
+            r.pending = got[-1]
+            r.remaining -= k
+            out[r.rid] = got
+            if r.remaining == 0:
+                self._finish(r)
+        return out
+
+    def _finish(self, req: _Request) -> None:
+        used = {int(b) for b in self.tables[req.row] if b != 0}
+        self.free.extend(sorted(used, reverse=True))
+        self.tables[req.row] = 0
+        self.lens[req.row] = 0
+        self.rows[req.row] = None
+        self.finished[req.rid] = req.tokens
+
+    # -- convenience -----------------------------------------------------
+    def run(self, prompts: List[List[int]],
+            max_new_tokens: int,
+            max_steps_per_dispatch: int = 32) -> Dict[int, List[int]]:
+        """Admit as many prompts as fit, decode to completion, admit the
+        rest as rows free up; returns {rid: generated tokens}.
+        ``max_steps_per_dispatch=1`` forces single-step decoding."""
+        pending = list(prompts)
+        rids = []
+        while pending or any(r is not None for r in self.rows):
+            admitted = False
+            while pending:
+                try:
+                    rids.append(self.add(pending[0], max_new_tokens))
+                    pending.pop(0)
+                    admitted = True
+                except RuntimeError as e:
+                    self._check_alive()
+                    if not any(r is not None for r in self.rows):
+                        raise RuntimeError(
+                            f"request cannot be admitted even on an idle "
+                            f"engine: {e}") from e
+                    break
+            if (not self.step_chunk(max_steps=max_steps_per_dispatch)
+                    and not admitted and pending):
+                raise RuntimeError("engine stalled with pending requests")
+        return {rid: self.finished[rid] for rid in rids}
