@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads import convert
 from tpu_dra_driver_torch.workloads.models import generate, serving
 from tpu_dra_driver_torch.workloads.models import transformer
@@ -66,6 +67,8 @@ def test_default_device_entry_points_raise_without_cuda():
         serving.ServingEngine(params, cfg, n_blocks=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.params_from_jax({"embed": params["embed"].numpy()})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_package(tmp_path):

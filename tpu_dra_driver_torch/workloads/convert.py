@@ -29,7 +29,9 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 def params_from_jax(tree, device="cuda"):
     """Convert a numpy-leaved JAX params tree (dicts, lists, QTensor-like
-    leaves) to torch tensors on ``device``, keeping its structure."""
+    leaves) to torch tensors on ``device``, keeping its structure. Each
+    leaf is a fresh tensor of its own (stacked [L, ...] layers too), so
+    it can take ``requires_grad_()`` and in-place optimizer updates."""
     dev = resolve_device(device)
 
     def walk(node):
