@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``tpu_dra_driver_torch``).
 
-Drives the port's serving and training paths on one CUDA card and
-checks them; imports no JAX. Phases, each of which fails the run when
-it fails:
+Drives the port's serving, generation and training paths on one CUDA
+card and checks them; imports no JAX. Phases, each of which fails the
+run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
 2. build: the CUDA kernels from the sources in the checkout, one nvcc
@@ -15,16 +15,32 @@ it fails:
    (B3) kernels against their plain versions over every mask form in
    f32, and at the full-width training shapes in bf16 row by row against
    an f32 reference (timed likewise);
-5. engine parity: the ``ServingTraffic`` configuration in fp32 through
+5. flash-decode kernel: B5 against its plain version at the full-width
+   generation shapes (q [8, 16, 1, 128], cache [8, 4, 3200, 128]) in
+   bf16 and int8 row by row against an f32 reference, with a 64-slot
+   sub-tile left out shown to break that allowance, in f32 at the first,
+   a middle and the last slot, and on a wrapped ring (timed likewise);
+6. engine parity: the ``ServingTraffic`` configuration in fp32 through
    the engine on the card and on the CPU, same weights and prompts;
-6. serving: the full-width serving configuration (vocab 8192, d_model
+7. serving: the full-width serving configuration (vocab 8192, d_model
    1024, 8 heads over 4 KV heads, 6 layers, RoPE, bf16; six prompts of
    256-512 tokens, 96 new tokens each) through ``ServingEngine.run``,
-   with B4's launches counted over that run;
-7. training parity: a small GQA/RoPE config in fp32, three
+   with B4's launches counted over that run, then ``serving_throughput``
+   (the engine against per-request ``generate()``, same outputs);
+8. generation parity: a small GQA/RoPE config in fp32, greedy
+   ``generate`` and teacher-forced ``decode_step`` on the card and on the
+   CPU (full-length cache, int8 cache, a wrapped ring, chunked prefill),
+   with B5's launches counted on the card;
+9. generation: the full-width decode configuration (vocab 8192, d_model
+   2048, 16 heads over 4 KV heads, 8 layers, d_ff 8192, RoPE, bf16; batch
+   8, prompt 2048, chains of 32 and 1056 tokens) through
+   ``decode_tokens_per_sec`` in bf16, with int8 weights and an int8
+   cache, and with int8 weights alone, with B5's launches counted over
+   one long-chain ``generate`` call;
+10. training parity: a small GQA/RoPE config in fp32, three
    ``make_train_step`` steps on the card and on the CPU from one seed,
    and the loss of ``entry()`` on both;
-8. training: the flagship training configuration (vocab 8192, d_model
+11. training: the flagship training configuration (vocab 8192, d_model
    2048, 16 heads over 4 KV heads, 8 layers, d_ff 8192, RoPE, bf16,
    ``remat`` with the ``"dots"`` policy, ``scan_layers``; batch 8 x 2048;
    ``default_optimizer()``; flash attention) for one untimed and three
@@ -41,12 +57,14 @@ Run from the repo root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -55,14 +73,20 @@ import torch.nn.functional as F
 
 from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads.models import transformer as tt
+from tpu_dra_driver_torch.workloads.models.generate import (
+    block_prefill, chunked_prefill, decode_step, decode_tokens_per_sec,
+    generate, init_kv_cache,
+)
+from tpu_dra_driver_torch.workloads.models.quantize import quantize_params
 from tpu_dra_driver_torch.workloads.models.serving import (
-    ServingEngine, paged_decode_step,
+    ServingEngine, paged_decode_step, serving_throughput,
 )
 from tpu_dra_driver_torch.workloads.models.transformer import (
     ModelConfig, init_params,
 )
 from tpu_dra_driver_torch.workloads.ops import _build
 from tpu_dra_driver_torch.workloads.ops import attention as fa
+from tpu_dra_driver_torch.workloads.ops import decode_attention as da
 from tpu_dra_driver_torch.workloads.ops import paged_attention as pa
 
 DEV = "cuda"
@@ -95,7 +119,7 @@ SMALL = ModelConfig(vocab=128, d_model=64, n_heads=4, n_kv_heads=2,
 SMALL_ENGINE = dict(n_blocks=24, block_t=8, max_batch=4,
                     max_blocks_per_seq=8)
 
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "decode_attention")
 
 # bf16 against an f32 reference, row by row. Under a causal mask the
 # outputs' scale falls off along the sequence (out[0] is v[0], dk and dv
@@ -116,6 +140,18 @@ TOL_BF16_ROW_ATOL = 2.0 ** -8
 # rows
 FLASH_MUTANT_TILES = ((1024, 1024), (1984, 1024))
 FLASH_MUTANT_TILE = 64
+# flash-decode (B5) at the full-width generation read: (b, h, h_kv, L,
+# hd), the cache round_up_kv(2048 + 1056) slots long; bf16 and int8 at
+# these positions, f32 at the first, a middle and the last slot
+DECODE_FULL = (8, 16, 4, 3200, 128)
+DECODE_BF16_POS = (2048, 3103)
+DECODE_INT8_POS = (2048,)
+DECODE_F32_POS = (0, 1600, 3199)
+# a ring of 256 slots read at position 1000 (wrapped: every slot visible)
+DECODE_RING = (256, 1000)
+# the sub-tile (slots) whose omission from the middle of the live range
+# the bf16 and int8 allowances must see in every row
+DECODE_MUTANT_TILE = 64
 # lse is f32 on both sides: summation order only
 TOL_FLASH_LSE = 1e-4
 # f32 mask cases: summation order only, relative to max(1, largest value)
@@ -153,6 +189,34 @@ FULL_TRAIN = ModelConfig(vocab=8192, d_model=2048, n_heads=16, n_kv_heads=4,
                          scan_unroll=8)
 FULL_TRAIN_BATCH = (8, 2048)
 TIMED_STEPS = 3
+# generation, card against CPU in fp32: name -> (config, prompt length,
+# steps, generate keywords); the ring of 128 slots wraps during prefill
+# and decode, and every read but chunked prefill's goes through B5
+SMALL_GEN = {
+    "full_length": (SMALL, 16, 24, {}),
+    "kv_int8": (replace(SMALL, kv_int8=True), 16, 24, {}),
+    "ring_window_128": (replace(SMALL, window=128), 16, 140, {}),
+    "prefill_chunk": (SMALL, 16, 24, {"prefill_chunk": 4}),
+}
+# serving_throughput in bf16: where the engine's tokens and generate()'s
+# part, both tokens must be within this share of the largest |logit| of
+# the f32 top logit at that position (the two paths' bf16 kernels and
+# matrix shapes round differently, so a near-tie may break either way;
+# the card's bf16 decode logits differ from the CPU's by about 1% of
+# that scale in phase 7)
+TOL_TIE_REL = 2.0 ** -4
+# the full-width decode benchmark of the reference (bench.py:2214-2218)
+GEN_FULL = ModelConfig(vocab=8192, d_model=2048, n_heads=16, n_kv_heads=4,
+                       n_layers=8, d_ff=8192, max_seq=2048 + 1056,
+                       use_rope=True)
+GEN_FULL_RUN = dict(b=8, prompt_len=2048, gen_short=32, gen_long=1056,
+                    iters=3)
+# bf16 decode steps run once more under torch.profiler
+PROFILED_DECODE_STEPS = 32
+# name -> (kv_int8, int8 weights)
+GEN_FULL_VARIANTS = {"bf16": (False, False),
+                     "int8 weights + int8 KV": (True, True),
+                     "int8 weights": (False, True)}
 # random N(0, 0.02) weights, tied head: logits of variance ~ d * 0.02^2,
 # so the first loss is about ln(8192) + 0.4 = 9.4
 FIRST_LOSS_RANGE = (8.5, 10.5)
@@ -160,6 +224,17 @@ FIRST_LOSS_RANGE = (8.5, 10.5)
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+@contextlib.contextmanager
+def no_device_waits():
+    """Inside, any call that makes the host wait for the card (a
+    synchronize, a copy to the host, a blocking copy from it) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def time_ms(fn, iters: int = 50,
@@ -642,6 +717,327 @@ def flash_phase(gen) -> dict:
     return result
 
 
+def _decode_inputs(shape, dtype, gen, int8=False):
+    """(q, k, v, k_scale, v_scale) drawn on the CPU from ``gen``, on the
+    card; an int8 cache holds codes in [-127, 127] with scales in [0.01,
+    0.03), else the scales are None."""
+    b, h, h_kv, L, hd = shape
+    q = torch.randn((b, h, 1, hd), generator=gen).to(DEV, dtype)
+    if not int8:
+        k, v = (torch.randn((b, h_kv, L, hd), generator=gen).to(DEV, dtype)
+                for _ in range(2))
+        return q, k, v, None, None
+    k, v = (torch.randint(-127, 128, (b, h_kv, L, hd), generator=gen,
+                          dtype=torch.int8).to(DEV) for _ in range(2))
+    ks, vs = ((torch.rand((b, h_kv, L), generator=gen) * 0.02 + 0.01).to(DEV)
+              for _ in range(2))
+    return q, k, v, ks, vs
+
+
+def _decode_bytes_flops(q, k, pos, quantized):
+    """(bytes, flops) one read needs: the live K and V rows (and their
+    scales) and q read once, the output written once; QK and PV."""
+    b, h, _, hd = q.shape
+    h_kv, L = k.shape[1], k.shape[2]
+    n = min(pos + 1, L)
+    n_bytes = (2 * b * h_kv * n * hd * k.element_size()
+               + (2 * b * h_kv * n * 4 if quantized else 0)
+               + 2 * q.numel() * q.element_size())
+    return n_bytes, 4 * b * h * hd * n
+
+
+def _decode_check(label, q, k, v, ks, vs, pos) -> float:
+    """One B5 reading against its plain version, returning the largest
+    |kernel - plain|: f32 queries within TOL_F32; bf16 queries row by row
+    against an f32 reference, with a sub-tile of the middle of the live
+    range left out shown to break the allowance in every row."""
+    got = da.flash_decode_attention(q, k, v, pos, ks, vs)
+    plain = da.flash_decode_attention_plain(q, k, v, pos, ks, vs)
+    torch.cuda.synchronize()
+    err = (got.float() - plain.float()).abs().max().item()
+    if q.dtype == torch.float32:
+        print(f"  {label} pos {pos}: max |kernel - plain| {err:.3e} "
+              f"(tolerance {TOL_F32:.0e})")
+        if not err <= TOL_F32:
+            raise AssertionError(f"B5 disagrees with its plain version: "
+                                 f"{label} pos {pos}, {err}")
+        return err
+
+    def f32(x):
+        return x if x is None or x.dtype == torch.int8 else x.float()
+
+    args32 = [f32(x) for x in (q, k, v, ks, vs)]
+    ref = da.flash_decode_attention_plain(args32[0], args32[1], args32[2],
+                                          pos, args32[3], args32[4])
+    reading = _bf16_reading(got, plain, ref)
+    n = min(pos + 1, k.shape[2])
+    t0 = (n // 2) // DECODE_MUTANT_TILE * DECODE_MUTANT_TILE
+    cut = slice(t0, t0 + DECODE_MUTANT_TILE)
+
+    def without(x, axis):
+        keep = [slice(None)] * x.ndim
+        keep[axis] = slice(0, t0)
+        rest = list(keep)
+        rest[axis] = slice(cut.stop, None)
+        return torch.cat([x[tuple(keep)], x[tuple(rest)]], dim=axis)
+
+    mutant = da.flash_decode_attention_plain(
+        args32[0], without(args32[1], 2), without(args32[2], 2),
+        pos - DECODE_MUTANT_TILE,
+        *(None if x is None else without(x, 2) for x in args32[3:]))
+    seen = (_row_err(mutant, ref) / _allowance(plain, ref)).flatten()
+    print(f"  {label} pos {pos}: max |kernel - plain| {err:.3e}; worst row "
+          f"vs f32 {reading['kernel']:.3e} (plain {reading['plain']:.3e}); "
+          f"over allowance {reading['over']:.3f}; slots {t0}-{cut.stop - 1} "
+          f"left out: least {seen.min().item():.1f}, median "
+          f"{seen.median().item():.1f} times the allowance")
+    if not reading["over"] <= 1.0:
+        raise AssertionError(f"B5 disagrees in {label} at pos {pos}: "
+                             f"{reading['over']} of its allowance")
+    if not seen.min().item() > 1.0:
+        raise AssertionError(f"the {label} allowance would not see a "
+                             f"sub-tile left out: {seen.min().item()}")
+    return err
+
+
+def decode_kernel_phase(gen) -> dict:
+    b, h, h_kv, L, hd = DECODE_FULL
+    errs = []
+    for pos in DECODE_BF16_POS:
+        errs.append(_decode_check("bf16", *_decode_inputs(
+            DECODE_FULL, torch.bfloat16, gen), pos))
+    for pos in DECODE_INT8_POS:
+        errs.append(_decode_check("int8 cache, bf16 q", *_decode_inputs(
+            DECODE_FULL, torch.bfloat16, gen, int8=True), pos))
+    f32 = _decode_inputs(DECODE_FULL, torch.float32, gen)
+    for pos in DECODE_F32_POS:
+        _decode_check("f32", *f32, pos)
+    _decode_check("int8 cache, f32 q", *_decode_inputs(
+        DECODE_FULL, torch.float32, gen, int8=True), DECODE_F32_POS[1])
+    ring_len, ring_pos = DECODE_RING
+    ring = (b, h, h_kv, ring_len, hd)
+    _decode_check("ring f32", *_decode_inputs(ring, torch.float32, gen),
+                  ring_pos)
+    errs.append(_decode_check("ring bf16", *_decode_inputs(
+        ring, torch.bfloat16, gen), ring_pos))
+    del f32
+    torch.cuda.empty_cache()
+
+    # timings with a cold L2 at pos 2048, bounds and the library yardstick
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=DEV)
+    pos = DECODE_BF16_POS[0]
+    out = {}
+    for label, int8 in (("bf16", False), ("int8", True)):
+        q, k, v, ks, vs = _decode_inputs(DECODE_FULL, torch.bfloat16, gen,
+                                         int8=int8)
+        ms = time_ms(lambda: da.flash_decode_attention(q, k, v, pos, ks, vs),
+                     flush=flush)
+        plain_ms = time_ms(lambda: da.flash_decode_attention_plain(
+            q, k, v, pos, ks, vs), iters=20, flush=flush)
+        n_bytes, n_flops = _decode_bytes_flops(q, k, pos, int8)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOP_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        if int8:
+            library_ms, lib_note = None, ("no single PyTorch call reads an "
+                                          "int8 cache with per-slot scales")
+        else:
+            # yardstick only (the port never calls it)
+            kl, vl = k[:, :, :pos + 1], v[:, :, :pos + 1]
+            lib_out = F.scaled_dot_product_attention(q, kl, vl,
+                                                     enable_gqa=True)
+            got = da.flash_decode_attention(q, k, v, pos)
+            lib_err = (lib_out.float() - got.float()).abs().max().item()
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, kl, vl, enable_gqa=True), flush=flush)
+            lib_note = (f"SDPA over the live slots {library_ms:.4f} ms (max "
+                        f"|SDPA - kernel| {lib_err:.2e})")
+        print(f"{label} at pos {pos}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; {lib_note}; bound {bound_ms:.4f} ms "
+              f"({n_bytes} bytes, {n_flops} flops); kernel at "
+              f"{100 * bound_ms / ms:.1f}% of bound")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms,
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations"}
+    del flush
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), **out["bf16"]}
+
+
+def serving_throughput_phase(card: str) -> None:
+    params = init_params(FULL, 3, device=DEV)
+    rng = np.random.RandomState(4)
+    prompts = [[int(t) for t in rng.randint(0, FULL.vocab, n)]
+               for n in FULL_PROMPT_LENS]
+    t0 = time.perf_counter()
+    r = serving_throughput(params, FULL, prompts, FULL_NEW_TOKENS,
+                           device=DEV, **FULL_ENGINE)
+    dev = r["engine_device_tokens_per_sec"]
+    seq = r["sequential_device_tokens_per_sec"]
+    print(f"{card}: engine {r['engine_tokens_per_sec']:.1f} tokens/s wall, "
+          f"sequential generate() {r['sequential_tokens_per_sec']:.1f}; "
+          f"device time: engine {dev and round(dev, 1)} tokens/s, "
+          f"sequential {seq and round(seq, 1)}; speedup wall "
+          f"{r['speedup']:.3f}, dispatch {r['speedup_dispatch']:.3f}, "
+          f"batching (device) {r['speedup_batching'] and round(r['speedup_batching'], 3)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    engine, sequential = r["outputs"], r["sequential_outputs"]
+    if dev is None or sorted(engine) != sorted(sequential):
+        raise AssertionError("serving_throughput: no device time, or not "
+                             "one output per prompt on both paths")
+    # where the paths part, both tokens must be near-ties of an f32
+    # forward over the prompt and the common prefix
+    params32 = tt._tree_map(lambda a: a.float(), params)
+    cfg32 = replace(FULL, dtype=torch.float32)
+    parts = []
+    for i, p in enumerate(prompts):
+        e, q = engine[i], sequential[i]
+        j = next((k for k, (a, b) in enumerate(zip(e, q)) if a != b), None)
+        if j is None:
+            parts.append(f"{i}: equal")
+            continue
+        toks = torch.tensor([p + q[:j]], dtype=torch.int32, device=DEV)
+        with torch.no_grad():
+            logits = tt.forward(params32, toks, cfg32)[0, -1]
+        scale = logits.abs().max().item()
+        top = logits.max().item()
+        off = max(top - logits[e[j]].item(), top - logits[q[j]].item())
+        parts.append(f"{i}: equal to token {j}, then {e[j]} vs {q[j]}, "
+                     f"{off / scale:.2e} of the largest |logit| below the "
+                     f"f32 top")
+        if not off <= TOL_TIE_REL * scale:
+            raise AssertionError(f"serving_throughput: request {i} parts "
+                                 f"at token {j} where no near-tie is: "
+                                 f"{off / scale}")
+    print(f"  engine vs sequential generate() ({FULL_NEW_TOKENS} tokens "
+          f"each; tolerance {TOL_TIE_REL:.3g}): " + "; ".join(parts))
+
+
+def small_generation_phase() -> None:
+    rng = np.random.RandomState(6)
+    params = {dev: init_params(SMALL, 0, device=dev) for dev in (DEV, "cpu")}
+    for name, (cfg, t0, steps, kw) in SMALL_GEN.items():
+        prompt = torch.from_numpy(
+            rng.randint(0, cfg.vocab, (2, t0)).astype(np.int32))
+        toks, launches = {}, {}
+        for dev in ("cpu", DEV):
+            on_dev = prompt.to(dev)
+            da.flash_decode_attention.launches = 0
+            with no_device_waits():
+                out = generate(params[dev], cfg, on_dev, steps=steps, **kw)
+            launches[dev] = da.flash_decode_attention.launches
+            toks[dev] = out.cpu()
+        # the ring fills one slot a step (prefill included); chunked
+        # prefill reads with the masked read (g > 1)
+        expect = cfg.n_layers * (steps - 1 + (t0 if cfg.window else 0))
+        same = torch.equal(toks[DEV], toks["cpu"])
+        logits = {}
+        if "prefill_chunk" in kw:
+            for dev in (DEV, "cpu"):
+                cache = init_kv_cache(cfg, 2, t0 + steps, device=dev)
+                logits[dev] = chunked_prefill(params[dev], cfg, cache,
+                                              prompt.to(dev), 4)[0].cpu()
+        else:
+            stream = toks["cpu"]
+            for dev in (DEV, "cpu"):
+                cache = init_kv_cache(cfg, 2, stream.shape[1], device=dev)
+                got = []
+                for pos in range(stream.shape[1]):
+                    lg, cache = decode_step(params[dev], cfg, cache, pos,
+                                            stream[:, pos].to(dev))
+                    got.append(lg.cpu())
+                logits[dev] = torch.stack(got)
+        diff = (logits[DEV] - logits["cpu"]).abs().max().item()
+        print(f"  {name}: {steps} greedy tokens card == cpu: {same}, the "
+              f"host never waiting for the card in generate(); B5 "
+              f"launches on the card {launches[DEV]} (expected {expect}); "
+              f"logits max |card - cpu| {diff:.3e} (tolerance "
+              f"{TOL_ENGINE_LOGITS:.0e})")
+        if not same or launches[DEV] != expect \
+                or not diff <= TOL_ENGINE_LOGITS:
+            raise AssertionError(f"generation on the card and the CPU "
+                                 f"disagree: {name}")
+
+
+def full_width_generation_phase(card: str) -> int:
+    """Returns B5's launches over one long-chain bf16 generate call."""
+    run = GEN_FULL_RUN
+    short, long_ = run["gen_short"], run["gen_long"]
+    b, t0 = run["b"], run["prompt_len"]
+    bf16_launches = None
+    for name, (kv_int8, int8_weights) in GEN_FULL_VARIANTS.items():
+        cfg = replace(GEN_FULL, kv_int8=kv_int8)
+        t_start = time.perf_counter()
+        r = decode_tokens_per_sec(cfg=cfg, quantized=int8_weights,
+                                  device=DEV, **run)
+        # the same params and prompt as the benchmark's (seeds 0 and 1),
+        # for two untraced chains: the wall rate, the idle share, and
+        # B5's launches over one long-chain generate call
+        params = init_params(cfg, 0, device=DEV)
+        if int8_weights:
+            params = quantize_params(params)
+        gen = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (b, t0), generator=gen,
+                               dtype=torch.int32).to(DEV)
+        walls, outs = {}, {}
+        for n in (short, long_):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            da.flash_decode_attention.launches = 0
+            start = time.perf_counter()
+            with no_device_waits():
+                outs[n] = generate(params, cfg, prompt, steps=n,
+                                   max_t=t0 + long_)
+            torch.cuda.synchronize()
+            walls[n] = time.perf_counter() - start
+            launches = da.flash_decode_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        wall_step = (walls[long_] - walls[short]) / (long_ - short)
+        dev_step = r["decode_step_ms"] / 1e3
+        idle = 1.0 - dev_step * long_ / walls[long_]
+        out = outs[long_]
+        expect = cfg.n_layers * (long_ - 1)
+        print(f"{card}, {name}: {r['decode_tokens_per_sec']:.1f} tokens/s by "
+              f"device time ({r['decode_step_ms']:.3f} ms/step, the long "
+              f"chain's device-busy time over its {long_} steps), "
+              f"{b / wall_step:.1f} tokens/s wall ({1e3 * wall_step:.3f} "
+              f"ms/step, marginal between {short} and {long_} steps); long "
+              f"chain {walls[long_]:.2f} s wall, card idle "
+              f"{100 * idle:.1f}% of it; params {r['param_mib']:.1f} MiB; "
+              f"peak memory {peak / 2**30:.2f} GiB; B5 launches {launches} "
+              f"(expected {expect}); {time.perf_counter() - t_start:.1f} s")
+        if out.shape != (b, t0 + long_) or not bool(
+                ((out >= 0) & (out < cfg.vocab)).all()):
+            raise AssertionError(f"{name}: malformed generation output")
+        if not torch.equal(outs[short], out[:, :t0 + short]):
+            raise AssertionError(f"{name}: the short chain's tokens are not "
+                                 f"a prefix of the long chain's")
+        if launches != expect:
+            raise AssertionError(f"{name}: B5 launched {launches} times per "
+                                 f"generate call, expected {expect}")
+        if bf16_launches is None:
+            bf16_launches = launches
+            # device time by kernel over PROFILED_DECODE_STEPS decode
+            # steps from position t0 (the prefill outside the profile)
+            cache = init_kv_cache(cfg, b, t0 + long_, device=DEV)
+            logits, cache, _ = block_prefill(params, cfg, cache, prompt)
+            tok = logits.argmax(-1).to(torch.int32)
+
+            def steps():
+                for i in range(PROFILED_DECODE_STEPS):
+                    decode_step(params, cfg, cache, t0 + i, tok)
+
+            _profile_step(steps, 1e3 * wall_step * PROFILED_DECODE_STEPS,
+                          DECODE_KERNEL_GROUPS,
+                          f"{PROFILED_DECODE_STEPS} decode steps from "
+                          f"position {t0}")
+            del cache, logits
+        del params, outs, out
+        torch.cuda.empty_cache()
+    return bf16_launches
+
+
 def small_training_phase() -> None:
     rng = np.random.RandomState(5)
     b, t = SMALL_TRAIN_BATCH
@@ -749,12 +1145,19 @@ KERNEL_GROUPS = (
     ("flash dk/dv (B3)", ("flash_bwd_dkv_kernel",)),
     ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
 )
+# ... and of a decode step
+DECODE_KERNEL_GROUPS = (
+    ("flash decode (B5)", ("decode_kernel", "combine_kernel")),
+    ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
+)
 
 
-def _profile_step(run_step, step_ms: float) -> None:
-    """Device time by kernel over one more training step under
-    ``torch.profiler``, grouped as in ``KERNEL_GROUPS`` (everything else
-    is elementwise, reductions and copies), against the timed step."""
+def _profile_step(run_step, step_ms: float, groups=KERNEL_GROUPS,
+                  what: str = "step") -> None:
+    """Device time by kernel over one more run of ``run_step`` (a
+    training step, or ``what``) under ``torch.profiler``, grouped as in
+    ``groups`` (everything else is elementwise, reductions and copies),
+    against its timed wall time ``step_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -771,17 +1174,17 @@ def _profile_step(run_step, step_ms: float) -> None:
               "(breakdown not measured)")
         return
     busy = sum(ms for _, ms, _ in kernels)
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other (elementwise, reductions, copies)"] = 0.0
+    shares = {name: 0.0 for name, _ in groups}
+    shares["other (elementwise, reductions, copies)"] = 0.0
     for key, ms, _ in kernels:
         low = key.lower()
-        name = next((g for g, frags in KERNEL_GROUPS
+        name = next((g for g, frags in groups
                      if any(f in low for f in frags)),
                     "other (elementwise, reductions, copies)")
-        groups[name] += ms
-    print(f"profiled step: {len(kernels)} kernel names, device busy "
-          f"{busy:.2f} ms against the timed {step_ms:.2f} ms/step")
-    for name, ms in groups.items():
+        shares[name] += ms
+    print(f"profiled {what}: {len(kernels)} kernel names, device busy "
+          f"{busy:.2f} ms against the timed {step_ms:.2f} ms")
+    for name, ms in shares.items():
         print(f"  {name}: {ms:.2f} ms ({100 * ms / busy:.1f}% of busy)")
     for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
@@ -906,11 +1309,21 @@ def main() -> int:
     phase("flash kernels vs plain versions")
     flash = flash_phase(gen)
 
+    phase("flash-decode kernel vs plain version, full-width shapes")
+    decode = decode_kernel_phase(gen)
+
     phase("engine on the card vs on the CPU (fp32, small)")
     small_engine_phase()
 
     phase("full-width serving")
     served = full_width_phase(smi)
+    serving_throughput_phase(smi)
+
+    phase("generation on the card vs on the CPU (fp32, small)")
+    small_generation_phase()
+
+    phase("full-width generation")
+    decode_launches = full_width_generation_phase(smi)
 
     phase("training on the card vs on the CPU (fp32, small)")
     small_training_phase()
@@ -943,6 +1356,15 @@ def main() -> int:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
         })
+    rows.append({
+        "name": "flash_decode_attention",
+        "route": "cuda",
+        "source": "tpu_dra_driver_torch/workloads/csrc/decode_attention.cu",
+        "replaces": "tpu_dra_driver/workloads/ops/decode_attention.py:73",
+        "launches": decode_launches,
+        **{k: decode[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")},
+    })
     print(json.dumps({"kernels": rows}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

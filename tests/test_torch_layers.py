@@ -22,13 +22,14 @@ from tpu_dra_driver.workloads.ops import attention as ja
 from tpu_dra_driver_torch.workloads import convert
 from tpu_dra_driver_torch.workloads.models import quantize as tq
 from tpu_dra_driver_torch.workloads.models import transformer as tt
-from tpu_dra_driver_torch.workloads.models import generate as tg
 from tpu_dra_driver_torch.workloads.ops import attention as ta
 
 # the reference's models package re-exports functions named ``quantize``
 # and ``generate``, which hide the submodules of those names
 jq = importlib.import_module("tpu_dra_driver.workloads.models.quantize")
 jg = importlib.import_module("tpu_dra_driver.workloads.models.generate")
+# the port's package re-exports ``generate`` likewise
+tg = importlib.import_module("tpu_dra_driver_torch.workloads.models.generate")
 
 ELEMENTWISE = dict(rtol=1e-6, atol=1e-6)
 CONTRACTION = dict(rtol=1e-5, atol=1e-5)

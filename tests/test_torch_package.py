@@ -3,6 +3,7 @@
 that create tensors default to CUDA and raise where there is none."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -13,9 +14,13 @@ import torch
 
 from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads import convert
-from tpu_dra_driver_torch.workloads.models import generate, serving
+from tpu_dra_driver_torch.workloads.models import serving
 from tpu_dra_driver_torch.workloads.models import transformer
 from tpu_dra_driver_torch.workloads.ops import paged_attention
+
+# the module, not the ``generate`` function the package exports
+generate = importlib.import_module(
+    "tpu_dra_driver_torch.workloads.models.generate")
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes",

@@ -1,7 +1,7 @@
-"""Validation workloads on PyTorch: the serving and training paths of
-:mod:`tpu_dra_driver.workloads`, with their attention kernels (paged
-decode, flash forward and backward) written in CUDA C++ for Hopper
-(``csrc/``)."""
+"""Validation workloads on PyTorch: the serving, training and
+generation paths of :mod:`tpu_dra_driver.workloads`, with their
+attention kernels (paged decode, flash forward and backward, flash
+decode) written in CUDA C++ for Hopper (``csrc/``)."""
 
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ weight replaced by a :class:`QTensor`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Iterator, Union
 
 import torch
 
@@ -25,6 +25,10 @@ class QTensor:
     q: torch.Tensor       # int8, same shape as the fp weight
     s: torch.Tensor       # fp32 scale, shape = q.shape minus `axis`
     axis: int = -2
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.numel() * self.q.element_size() + self.s.numel() * 4
 
     def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
         s = self.s.unsqueeze(self.axis)
@@ -68,6 +72,30 @@ def quantize_params(params: Dict, include_embed: bool = True) -> Dict:
         return out
 
     return walk(params)
+
+
+def _leaves(node) -> Iterator[Union[torch.Tensor, QTensor]]:
+    """Tensor and :class:`QTensor` leaves of a dict/list params tree."""
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def is_quantized(params: Dict) -> bool:
+    return any(isinstance(leaf, QTensor) for leaf in _leaves(params))
+
+
+def param_bytes(params: Dict) -> int:
+    """Total parameter storage in bytes (QTensor-aware): the bytes a
+    decode step streams."""
+    return sum(leaf.nbytes if isinstance(leaf, QTensor)
+               else leaf.numel() * leaf.element_size()
+               for leaf in _leaves(params))
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:

@@ -3,9 +3,8 @@ training forward and loss, the optimizer and the train step.
 
 Port of :mod:`tpu_dra_driver.workloads.models.transformer`. Params are a
 plain dict with the reference's keys and shapes, so a JAX pytree
-converts one to one (:func:`..convert.params_from_jax`). The MoE layers,
-``default_optimizer(kind="adafactor")`` and ``train_tokens_per_sec``
-are not ported yet.
+converts one to one (:func:`..convert.params_from_jax`). The MoE layers
+and ``default_optimizer(kind="adafactor")`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,9 +22,14 @@ from torch.utils.checkpoint import (
 
 from tpu_dra_driver_torch.workloads import resolve_device
 from tpu_dra_driver_torch.workloads.models.quantize import (
-    QTensor, embed_lookup, lm_head, mm,
+    QTensor, _leaves, embed_lookup, lm_head, mm,
 )
-from tpu_dra_driver_torch.workloads.ops.attention import attention_reference
+from tpu_dra_driver_torch.workloads.ops.attention import (
+    attention_reference, flash_attention,
+)
+from tpu_dra_driver_torch.workloads.utils.timing import (
+    chain_seconds_per_step,
+)
 
 
 @dataclass(frozen=True)
@@ -169,14 +173,17 @@ def apply_rope(x: torch.Tensor, pos0=0, theta: float = 10000.0
     dev = x.device
     half = torch.arange(0, hd // 2, dtype=torch.float32, device=dev)
     inv_freq = 1.0 / (theta ** (half / (hd // 2)))
-    p0 = torch.as_tensor(pos0, device=dev).float()
-    steps = torch.arange(t, dtype=torch.float32, device=dev)
-    if p0.ndim == 1:                       # per-sequence positions [b]
-        ang = (p0[:, None] + steps)[:, :, None] * inv_freq   # [b,t,hd/2]
+    if isinstance(pos0, torch.Tensor) and pos0.ndim == 1:
+        # per-sequence positions [b]
+        steps = torch.arange(t, dtype=torch.float32, device=dev)
+        ang = (pos0.float()[:, None] + steps)[:, :, None] * inv_freq
         cos = torch.cos(ang)[:, None]                        # [b,1,t,hd/2]
         sin = torch.sin(ang)[:, None]
     else:
-        ang = (p0 + steps)[:, None] * inv_freq               # [t,hd/2]
+        # positions made on the device: copying a host number there
+        # would wait for the device
+        pos = torch.arange(pos0, pos0 + t, dtype=torch.float32, device=dev)
+        ang = pos[:, None] * inv_freq                        # [t,hd/2]
         cos = torch.cos(ang)[None, None]
         sin = torch.sin(ang)[None, None]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -358,11 +365,7 @@ def loss_fn(params: Params, batch: Tuple[torch.Tensor, torch.Tensor],
 
 def _param_leaves(node) -> List:
     """Leaves of a params tree in a fixed order (dict insertion order)."""
-    if isinstance(node, dict):
-        return [x for v in node.values() for x in _param_leaves(v)]
-    if isinstance(node, list):
-        return [x for v in node for x in _param_leaves(v)]
-    return [node]
+    return list(_leaves(node))
 
 
 def param_count(params: Params) -> int:
@@ -534,3 +537,51 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
         return params, opt_state, loss
 
     return train_step, opt.init
+
+
+def train_tokens_per_sec(b: int = 8, t: int = 2048, iters: int = 3,
+                         steps_short: int = 2, steps_long: int = 12,
+                         cfg: Optional[ModelConfig] = None,
+                         device="cuda") -> dict:
+    """Full-model training throughput: tokens/s and achieved model
+    TFLOP/s of chained train steps (gradient and ``default_optimizer()``
+    update, in place) on a GPT-class block stack. Seconds per step come
+    from ``chain_seconds_per_step``: the device-busy time of the long
+    chain on the card, the marginal rate between the two chain lengths
+    without one. FLOPs per token: 6 N for the matrix products forward
+    and backward plus 6 * n_layers * t * d_model for causal attention,
+    an estimate by design. Attention is ``flash_attention``: its kernels
+    on the card, their plain versions on the CPU."""
+    dev = resolve_device(device)
+    cfg = cfg or ModelConfig(vocab=8192, d_model=2048, n_heads=16,
+                             n_kv_heads=4, n_layers=8, d_ff=8192,
+                             max_seq=t, use_rope=True, remat=True,
+                             remat_policy="dots", scan_layers=True,
+                             scan_unroll=8)
+    params = init_params(cfg, 0, device=dev)
+    train_step, opt_init = make_train_step(
+        cfg, optimizer=default_optimizer(), attn_fn=flash_attention)
+    opt_state = opt_init(params)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                           dtype=torch.int32).to(dev)
+    batch = (tokens, tokens)
+
+    def make_run(n):
+        def run():
+            loss = None
+            for _ in range(n):
+                _, _, loss = train_step(params, opt_state, batch)
+            return loss
+        return run
+
+    per_step = chain_seconds_per_step(make_run, steps_short, steps_long,
+                                      iters)
+    n_params = param_count(params)
+    flops_per_token = 6 * n_params + 6 * cfg.n_layers * t * cfg.d_model
+    tps = b * t / per_step
+    return {"train_tokens_per_sec": tps,
+            "train_step_ms": per_step * 1e3,
+            "model_tflops": tps * flops_per_token / 1e12,
+            "params_m": n_params / 1e6,
+            "shape": f"b{b} t{t} L{cfg.n_layers} d{cfg.d_model} flash"}
