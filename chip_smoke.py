@@ -13,8 +13,9 @@ run when it fails:
    (timed, with its bound and a library call as yardstick) and in f32;
 4. flash kernels: the flash-attention forward (B1), dq (B2) and dk/dv
    (B3) kernels against their plain versions over every mask form in
-   f32, and at the full-width training shapes in bf16 row by row against
-   an f32 reference (timed likewise);
+   f32, over every mask form in bf16 (ragged tiles, GQA, head dims 16 to
+   128) and at the full-width training shapes in bf16, the bf16 results
+   row by row against an f32 reference (timed likewise);
 5. flash-decode kernel: B5 against its plain version at the full-width
    generation shapes (q [8, 16, 1, 128], cache [8, 4, 3200, 128]) in
    bf16 and int8 row by row against an f32 reference, with a 64-slot
@@ -168,6 +169,25 @@ FLASH_CASES = {
     "prefix": ((1, 4, 2, 256, 256, 32), dict(prefix=100)),
     "noncausal_tkv_ne_t": ((1, 4, 2, 128, 320, 32), dict(causal=False)),
     "causal_ragged_tiles": ((1, 2, 1, 80, 80, 128), {}),
+}
+# the same mask forms in bf16, the dtype of the training path (its B1 and
+# B3 are the wgmma kernels; f32 runs 32-row FMA kernels), plus ragged
+# tiles at t = 192, a chunk with t != tkv, and head dims 16, 96 whose
+# columns past d the kernels zero-fill: each output row held against an
+# f32 reference like the full-width check below
+FLASH_BF16_CASES = {
+    "causal_d64": ((2, 4, 2, 256, 256, 64), {}),
+    "causal_gqa_4to1_d32": ((1, 8, 2, 256, 256, 32), {}),
+    "window": ((1, 4, 2, 256, 256, 64), dict(window=48)),
+    "window_row_offset_empty_rows": ((1, 2, 1, 128, 128, 64),
+                                     dict(window=32, row_offset=64)),
+    "row_offset_tkv_ne_t": ((1, 4, 2, 128, 256, 128), dict(row_offset=128)),
+    "prefix": ((1, 4, 2, 256, 256, 32), dict(prefix=100)),
+    "noncausal_tkv_ne_t": ((1, 4, 2, 128, 320, 32), dict(causal=False)),
+    "causal_ragged_80": ((1, 2, 1, 80, 80, 128), {}),
+    "causal_ragged_192": ((1, 4, 1, 192, 192, 128), {}),
+    "causal_d16": ((1, 2, 2, 128, 128, 16), {}),
+    "causal_d96": ((1, 4, 2, 256, 256, 96), {}),
 }
 
 # training, card vs CPU in fp32: losses to cuBLAS-vs-CPU summation
@@ -535,13 +555,15 @@ def _bf16_reading(got, plain, ref) -> dict:
             "over": (err_k / _allowance(plain, ref)).max().item()}
 
 
-def _flash_f32_reference(q, k, v, dout, g_lse):
+def _flash_f32_reference(q, k, v, dout, g_lse, mask=None):
     """out, lse, dq, dk, dv of the plain versions in f32 on f32 copies
     of the (bf16) inputs, and the f32 operands the mutants need."""
+    mask = mask or {}
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
-    out, lse = fa._flash_forward_plain(q32, k32, v32)
+    out, lse = fa._flash_forward_plain(q32, k32, v32, **mask)
     dd = (do32 * out).sum(-1) - g_lse
-    dq, dk, dv = fa._flash_backward_plain(q32, k32, v32, do32, lse, dd)
+    dq, dk, dv = fa._flash_backward_plain(q32, k32, v32, do32, lse, dd,
+                                          **mask)
     ref = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
     return ref, (q32, k32, v32, do32, lse, dd)
 
@@ -579,6 +601,56 @@ def _tile_omission(allow, operands, row0, col0, n):
             for o, (c, at) in missing.items()}
 
 
+def _empty_rows(shape, mask) -> torch.Tensor:
+    """[t] bool: the q rows whose band is empty under ``mask``."""
+    vis = fa._visible(shape[3], shape[4], mask.get("causal", True),
+                      mask.get("window"), mask.get("row_offset", 0),
+                      mask.get("prefix"), DEV)
+    return ~vis.any(-1)
+
+
+def _check_empty_rows(pairs, empty, label) -> None:
+    """Rows with an empty band give out 0, dq 0 and the finite lse."""
+    if not empty.any():
+        return
+    out, dq = pairs["out"][0], pairs["dq"][0]
+    lse = pairs["lse"][0][:, :, empty]
+    want = (fa.NEG_INF + math.log2(1e-30)) / fa.LOG2E
+    print(f"  {int(empty.sum())} rows with an empty band: max |out| "
+          f"{out[:, :, empty].abs().max().item()}, max |dq| "
+          f"{dq[:, :, empty].abs().max().item()}, lse "
+          f"{lse.min().item():.6e}..{lse.max().item():.6e}")
+    if (out[:, :, empty] != 0).any() or (dq[:, :, empty] != 0).any() \
+            or not torch.allclose(lse, torch.full_like(lse, want),
+                                  rtol=1e-6):
+        raise AssertionError(f"{label}: empty-band rows are not out 0, dq 0 "
+                             f"and the finite empty lse")
+
+
+def _flash_bf16_case(name, shape, mask, gen) -> None:
+    """One bf16 mask case: out, dq, dk and dv row by row against the f32
+    reference within the allowance, lse within TOL_FLASH_LSE of it on
+    rows with a band, empty-band rows exact."""
+    q, k, v, dout, g_lse = _flash_inputs(shape, torch.bfloat16, gen)
+    pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
+    ref, _ = _flash_f32_reference(q, k, v, dout, g_lse, mask)
+    empty = _empty_rows(shape, mask)
+    lse_err = (pairs["lse"][0] - ref["lse"])[:, :, ~empty].abs().max().item()
+    readings = {o: _bf16_reading(pairs[o][0], pairs[o][1], ref[o])
+                for o in ("out", "dq", "dk", "dv")}
+    print(f"bf16 {name} {shape} {mask}: lse {lse_err:.2e}; worst row over "
+          f"its allowance " + ", ".join(
+              f"{o} {r['over']:.3f}" for o, r in readings.items()))
+    if not lse_err <= TOL_FLASH_LSE:
+        raise AssertionError(f"flash lse disagrees in bf16 case {name}: "
+                             f"{lse_err}")
+    for o, r in readings.items():
+        if not r["over"] <= 1.0:
+            raise AssertionError(f"flash {o} disagrees in bf16 case {name}: "
+                                 f"{r['over']} of its allowance")
+    _check_empty_rows(pairs, empty, f"bf16 {name}")
+
+
 def flash_phase(gen) -> dict:
     # every mask form, f32
     for name, (shape, mask) in FLASH_CASES.items():
@@ -591,23 +663,12 @@ def flash_phase(gen) -> dict:
             if not e <= TOL_FLASH_F32 * max(1.0, top):
                 raise AssertionError(f"flash {o} disagrees in f32 case "
                                      f"{name}: {e} (largest {top})")
-        vis = fa._visible(shape[3], shape[4], mask.get("causal", True),
-                          mask.get("window"), mask.get("row_offset", 0),
-                          mask.get("prefix"), DEV)
-        empty = ~vis.any(-1)
-        if empty.any():
-            out, dq = pairs["out"][0], pairs["dq"][0]
-            lse = pairs["lse"][0][:, :, empty]
-            want = (fa.NEG_INF + math.log2(1e-30)) / fa.LOG2E
-            print(f"  {int(empty.sum())} rows with an empty band: max |out| "
-                  f"{out[:, :, empty].abs().max().item()}, max |dq| "
-                  f"{dq[:, :, empty].abs().max().item()}, lse "
-                  f"{lse.min().item():.6e}..{lse.max().item():.6e}")
-            if (out[:, :, empty] != 0).any() or (dq[:, :, empty] != 0).any() \
-                    or not torch.allclose(lse, torch.full_like(lse, want),
-                                          rtol=1e-6):
-                raise AssertionError("empty-band rows are not out 0, dq 0 "
-                                     "and the finite empty lse")
+        _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
+
+    # every mask form, bf16
+    for name, (shape, mask) in FLASH_BF16_CASES.items():
+        _flash_bf16_case(name, shape, mask, gen)
+    torch.cuda.empty_cache()
 
     # the training shapes, bf16
     b, h, h_kv, t, d = FLASH_FULL

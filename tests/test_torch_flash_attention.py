@@ -11,6 +11,10 @@ Tolerance: 1e-5 absolute and relative. Both sides compute the same f32
 sums over at most 320 columns of O(1) terms in different orders; the
 observed gap is below 4e-6, about what the reference's flash kernel
 shows against its own oracle.
+
+The same cases also run in bf16, the dtype of the training path, whose
+kernels the card holds against these plain versions: see
+``TOL_BF16``.
 """
 
 import jax
@@ -23,6 +27,18 @@ from tpu_dra_driver.workloads.ops import attention as ja
 from tpu_dra_driver_torch.workloads.ops import attention as ta
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# bf16 inputs on both sides (the same f32 numbers rounded to nearest
+# even). out, dq, dk, dv: within 2^-6 of the reference's value plus 2^-6
+# of the output's largest |value|. Both sides round P and dS to bf16
+# before their products, but against different running maxima and from
+# scores that differ: the reference folds the softmax scale into q and
+# rounds that product to bf16 (2^-9 relative per element), the port
+# scales the f32 score. The outputs are rounded to bf16 (2^-8 relative)
+# on both sides. Observed: at most 1.0e-2 of the largest |value| (dq).
+# lse is f32 on both sides but carries the reference's rounded scale:
+# within 2^-7 absolute (observed 5.0e-3).
+TOL_BF16_REL = 2.0 ** -6
+TOL_BF16_LSE = 2.0 ** -7
 BLOCKS = dict(block_q=128, block_kv=128)
 
 # name -> ((b, h, h_kv, t, tkv, d), mask keywords)
@@ -91,6 +107,49 @@ def test_flash_matches_pallas_kernels(name):
     assert plain[1] is None
     for a, b in zip(plain[:1] + plain[2:], got[:1] + got[2:]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_bf16_plain_matches_pallas_kernels(name):
+    """The plain versions in bf16, which the card holds the bf16 kernels
+    against, against the reference's Pallas kernels in bf16 (interpret
+    mode). dq is compared off the rows whose band is empty, where the
+    reference's backward is known to be wrong (see
+    ``test_empty_band_rows_follow_the_mathematics``)."""
+    shape, kw = CASES[name]
+    q, k, v, g, g_lse = _inputs(shape, seed=len(name))
+
+    def f(q, k, v):
+        return ja.flash_attention_with_lse(q, k, v, interpret=True,
+                                           **BLOCKS, **kw)
+    (out, lse), vjp = jax.vjp(f, *(jnp.asarray(x, jnp.bfloat16)
+                                   for x in (q, k, v)))
+    grads = vjp((jnp.asarray(g, jnp.bfloat16), jnp.asarray(g_lse)))
+    want = [np.asarray(x.astype(jnp.float32)) for x in (out, lse, *grads)]
+
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v, g))
+    tq, tk, tv = (x.requires_grad_() for x in (tq, tk, tv))
+    t_out, t_lse = ta.flash_attention_with_lse(tq, tk, tv, **BLOCKS, **kw)
+    assert t_out.dtype == torch.bfloat16 and t_lse.dtype == torch.float32
+    total = (t_out.float() * tg.float()).sum() \
+        + (t_lse * torch.from_numpy(g_lse)).sum()
+    got = [x.detach().float().numpy() for x in
+           (t_out, t_lse, *torch.autograd.grad(total, (tq, tk, tv)))]
+
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=TOL_BF16_LSE,
+                               err_msg="lse")
+    b_, h, h_kv, t, tkv, d = shape
+    vis = ta._visible(t, tkv, kw.get("causal", True), kw.get("window"),
+                      kw.get("row_offset", 0), kw.get("prefix"), "cpu")
+    band = vis.any(-1).numpy()
+    for o, a, w in zip(("out", "dq", "dk", "dv"), got[:1] + got[2:],
+                       want[:1] + want[2:]):
+        if o == "dq":
+            a, w = a[:, :, band], w[:, :, band]
+        np.testing.assert_allclose(a, w, rtol=TOL_BF16_REL,
+                                   atol=TOL_BF16_REL * np.abs(w).max(),
+                                   err_msg=o)
 
 
 def test_flash_with_lse_nonzero_lse_cotangent():

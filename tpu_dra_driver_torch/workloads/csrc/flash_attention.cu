@@ -37,9 +37,11 @@
 // shapes (t = 2048, d = 128) does 4 d multiply-adds per visible
 // (row, column) pair in the forward, 6 d in dq and 8 d in dk/dv, against
 // O(t d) bytes per head: thousands of operations per byte, far above the
-// H100's ~295 bf16 tensor-core operations per byte.
+// H100's ~295 bf16 tensor-core operations per byte. So the kernels must
+// keep the tensor cores fed: every product of the bf16 forward and dk/dv
+// kernels is a Hopper warpgroup product (wgmma) and nothing else waits.
 //
-// Design: the TPU kernels carry their state across a sequential
+// Design. The TPU kernels carry their state across a sequential
 // superblock grid axis in VMEM scratch; Hopper has no ordered grid, so
 // each CTA walks its own KV tiles (forward, dq) or q tiles (dk/dv) in a
 // loop and nothing carries between CTAs. One CTA per (q tile, b * h) for
@@ -47,13 +49,38 @@
 // over the GQA group's heads itself: no atomics, and the result does
 // not change from run to run. Loops start and stop at the causal,
 // window and prefix bounds, so tiles wholly outside the band are never
-// loaded. bf16 products run on the tensor cores through WMMA (16x16x16,
-// f32 accumulate) from 64-row tiles in shared memory; the f32
-// instantiation multiplies with plain FMAs on 32-row tiles, so its
-// comparison with the plain version is tight. Running max, sum and the
-// accumulators live in shared memory. Not here yet: wgmma, TMA,
-// accumulators in registers and overlap of loads with products.
+// loaded, and the CTAs with the most tiles are launched first.
+//
+// bf16 forward (B1) and dk/dv (B3), sm_90a only, along the lines of
+// FlashAttention-3: a CTA is two consumer warpgroups and one producer
+// warp(group). The producer's one thread streams tiles with TMA
+// (128-byte swizzled panels of 64 columns; rows and columns past the
+// tensor's edge arrive as zeros) through a ring of shared memory
+// guarded by mbarriers (three stages in B1, two in B3), so the next tile
+// is in flight while the consumers multiply the current one. Each
+// consumer warpgroup owns 64 rows (B1: q rows of a 128-row tile; B3: KV
+// rows of a 128-row tile):
+// S = Q K^T (B3: S^T = K Q^T and dP^T = V dO^T) runs as wgmma from
+// shared memory into registers; the online softmax (B1) or P and dS
+// (B3) are formed on the accumulator fragment in registers, with quad
+// shuffles for the row max and sum, masked only on tiles that cross the
+// band's edge; P (B3: P^T, dS^T) is rounded to bf16 in registers and is
+// the register A operand of the second wgmma (O += P V; dV += P^T dO,
+// dK += dS^T Q) with B read MN-major from the same swizzled tiles. O, m
+// and l (B3: dK and dV) stay in registers for the whole walk and are
+// written once; setmaxnreg moves registers from the producer to the
+// consumers. B1 also pipelines its walk: the warpgroup waits only for
+// S of tile j, and its softmax runs while O += P V of tile j - 1 is
+// still on the tensor cores. Head dims up to 64 and up to 128 are two
+// instantiations; the columns past d are zero-filled by TMA and never
+// stored.
+//
+// The f32 instantiations multiply with plain FMAs on 32-row tiles in
+// shared memory, so their comparison with the plain version is tight.
+// The dq kernel (B2) still runs WMMA (16x16x16, f32 accumulate) from
+// 64-row bf16 tiles in shared memory, with its accumulator there too.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -84,10 +111,6 @@ template <> struct Cfg<float> {
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -318,13 +341,14 @@ template <typename T> struct FwdLayout {
   }
 };
 
-// B1, replaces `_flash_kernel` (ops/attention.py:105). Bound by
-// operations: 4 d per visible pair against 2 d bytes per row of q and
-// out. One CTA per (q tile, b * h) keeps its q tile and f32 accumulator
-// in shared memory for the whole KV walk, so q is read once and K/V once
-// per q tile; the walk stops at the causal, window and prefix bounds.
+// B1 in f32, replaces `_flash_kernel` (ops/attention.py:105); bf16
+// takes `flash_fwd_kernel_sm90`. One CTA per (q tile, b * h) keeps its q
+// tile and f32 accumulator in shared memory for the whole KV walk, so q
+// is read once and K/V once per q tile; the walk stops at the causal,
+// window and prefix bounds.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs the sm90 kernel");
   constexpr int B = Cfg<T>::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   const int d = a.d;
@@ -544,13 +568,15 @@ template <typename T> struct DkvLayout {
   }
 };
 
-// B3, replaces `_flash_bwd_dkv_kernel` (ops/attention.py:635). Bound by
-// operations: 8 d per visible pair. One CTA per (KV tile, b * h_kv)
-// walks every head of its GQA group and the q tiles that can see its
-// columns (from the diagonal on), so dk and dv are summed over the group
-// in shared memory: no atomics, the same result from run to run.
+// B3 in f32, replaces `_flash_bwd_dkv_kernel` (ops/attention.py:635);
+// bf16 takes `flash_bwd_dkv_kernel_sm90`. One CTA per (KV tile,
+// b * h_kv) walks every head of its GQA group and the q tiles that can
+// see its columns (from the diagonal on), so dk and dv are summed over
+// the group in shared memory: no atomics, the same result from run to
+// run.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs the sm90 kernel");
   constexpr int B = Cfg<T>::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   const int d = a.d;
@@ -635,6 +661,708 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
+// ------------------------------------------- Hopper building blocks
+
+namespace sm90 {
+
+constexpr int kConsumers = 2;                   // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kRows = 64;                       // rows per warpgroup
+constexpr uint32_t kPanelRow = 128;             // bytes: 64 bf16 columns
+constexpr uint32_t kAtom = 8 * kPanelRow;       // an 8-row swizzle atom
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait of over a second traps, so a broken pipeline fails the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t since = 0;
+  for (uint32_t tries = 1; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && tries % 4096 == 0) {
+      if (since == 0) since = global_ns();
+      else if (global_ns() - since > 1000000000ull) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// SWIZZLE_128B. K-major tiles (rows of 64 bf16 along K) step 8-row atoms
+// by `sbo` = 1024; MN-major tiles (K along the rows) step the next 8 K
+// rows by `sbo` = 1024 and the next 64 MN columns (the next panel) by
+// `lbo`.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most `pending` committed wgmma groups are in flight
+template <int pending> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(pending)
+               : "memory");
+}
+
+// Keeps the compiler from moving reads of a wgmma's accumulators above
+// the wait for it, and from reusing a register A operand's registers
+// while the product that reads them may still run.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// An m64nN f32 accumulator fragment: thread (warp w, lane l) of the
+// warpgroup holds, for each 8-column group j, d[4j + 2i + e] = element
+// (row 16w + l/4 + 8i, column 8j + 2(l%4) + e). Rounded to bf16 and
+// packed in pairs, 16 columns of it (groups 2k, 2k + 1) are exactly the
+// register A operand of the k-th m64k16 step of a following product.
+template <int N>
+__device__ __forceinline__ void to_a_operand(const float (&d)[N / 2],
+                                             uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k) {
+    a[k][0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
+    a[k][1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
+    a[k][2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
+    a[k][3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+  }
+}
+
+// d (+)= A . B, m64n64k16: A and B in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A . B, m64n128k16: A and B in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, m64n64k16: A in registers, B in shared memory MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d += A . B, m64n128k16: A in registers, B in shared memory MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// global rows [r0, r1] x columns [c0, c1] all visible: no mask needed
+__device__ __forceinline__ bool unmasked(const Args& a, int r0, int r1,
+                                         int c0, int c1) {
+  if (c1 >= a.tkv) return false;
+  if (!a.causal || c1 < a.prefix) return true;
+  return c1 <= r0 && (a.window == 0 || r1 - c0 < a.window);
+}
+
+// ---------------------------------------------------- B1 forward, bf16
+
+template <int HD> struct Fwd {
+  static constexpr int kBN = 128;           // KV rows per ring stage
+  // three stages: the pipelined walk holds tile it - 1 (V) and tile it
+  // (K) while the producer fills the next
+  static constexpr int kStages = 3;
+  static constexpr int kPanels = HD / 64;
+  static constexpr uint32_t kQWg = kPanels * kRows * kPanelRow;
+  static constexpr uint32_t kKv = kPanels * kBN * kPanelRow;  // K or V
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kConsumers * kQWg;
+  static constexpr uint32_t kV = kK + kStages * kKv;
+  static constexpr uint32_t kBars = kV + kStages * kKv;
+  // q, k_full[S], v_full[S], empty[S]; + slack to align the base to 1024
+  static constexpr uint32_t kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
+
+// B1 in bf16, replaces `_flash_kernel` (ops/attention.py:105). One CTA
+// per (128-row q tile, b * h); consumer warpgroup w owns q rows
+// [64 w, 64 w + 64) of the tile. Per KV tile of 128 rows: S = Q K^T by
+// wgmma from shared memory, the online softmax on the fragment, O *=
+// alpha and O += P V with P from registers. Returns out (bf16) and the
+// natural-log lse.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const Args a) {
+  using L = Fwd<HD>;
+  constexpr int kBN = L::kBN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_k = bar_q + 8;                 // + 8 s
+  const uint32_t bar_v = bar_k + 8 * L::kStages;
+  const uint32_t bar_empty = bar_v + 8 * L::kStages;
+
+  const int bh = blockIdx.x;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * (kConsumers * kRows);
+  const int rows = min(kConsumers * kRows, a.t - i0);
+  const int kvh = (bh / a.h) * a.h_kv + (bh % a.h) / (a.h / a.h_kv);
+  int lo, hi;
+  kv_tiles(a, a.row_offset + i0, a.row_offset + i0 + rows - 1, kBN, &lo, &hi);
+  const int n = hi - lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      // q rows wholly past t are not loaded; their rows are never stored
+      const int live = (rows + kRows - 1) / kRows;
+      mbar_expect(bar_q, live * L::kQWg);
+      for (int w = 0; w < live; ++w)
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(base + L::kQ + w * L::kQWg + p * kRows * kPanelRow,
+                      &tm_q, bar_q, 64 * p, i0 + kRows * w, bh);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % L::kStages;
+        if (it >= L::kStages)
+          mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
+        const int c0 = (lo + it) * kBN;
+        mbar_expect(bar_k + 8 * s, L::kKv);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(base + L::kK + s * L::kKv + p * kBN * kPanelRow, &tm_k,
+                      bar_k + 8 * s, 64 * p, c0, kvh);
+        mbar_expect(bar_v + 8 * s, L::kKv);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(base + L::kV + s * L::kKv + p * kBN * kPanelRow, &tm_v,
+                      bar_v + 8 * s, 64 * p, c0, kvh);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int qr = lane / 4, qc = 2 * (lane % 4);
+    const uint32_t q_s = base + L::kQ + wg * L::kQWg;
+    const int r0 = a.row_offset + i0 + kRows * wg;    // first global row
+    const int rw = r0 + 16 * warp + qr;               // this thread's row
+    const float qk_scale = a.scale * kLog2e;
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    // S = Q K^T of tile `it` into sc, issued and committed, not waited
+    auto issue_s = [&](float (&sc)[kBN / 2], int it) {
+      const uint32_t k_s = base + L::kK + (it % L::kStages) * L::kKv;
+      mbar_wait(bar_k + 8 * (it % L::kStages), (it / L::kStages) & 1);
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
+        const uint32_t koff = (k / 4) * kBN * kPanelRow + (k % 4) * 32;
+        wgmma_ss(sc, desc(q_s + off, 16, kAtom), desc(k_s + koff, 16, kAtom),
+                 k > 0);
+      }
+      wg_commit();
+    };
+    // O += P V of tile `it`, issued and committed, not waited
+    auto issue_pv = [&](const uint32_t (&pa)[kBN / 16][4], int it) {
+      const uint32_t v_s = base + L::kV + (it % L::kStages) * L::kKv;
+      mbar_wait(bar_v + 8 * (it % L::kStages), (it / L::kStages) & 1);
+#pragma unroll
+      for (int k = 0; k < kBN / 16; ++k)
+        wgmma_rs(o, pa[k],
+                 desc(v_s + k * 16 * kPanelRow, kBN * kPanelRow, kAtom));
+      wg_commit();
+    };
+    // online softmax in base 2 on the fragment of tile `it`: sc becomes
+    // P, m and l move on, and alpha rescales O. Masked scores take a fill
+    // below the m sentinel so they give exp2(...) == 0.
+    auto softmax = [&](float (&sc)[kBN / 2], int it, float (&alpha)[2]) {
+      const int c0 = (lo + it) * kBN;
+      const bool full = unmasked(a, r0, r0 + kRows - 1, c0, c0 + kBN - 1);
+      float mx[2] = {2.f * kNegInf, 2.f * kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * qk_scale;
+          if (!full && !visible(a, rw + 8 * (e / 2), c0 + 8 * j + qc + e % 2))
+            x = 2.f * kNegInf;
+          sc[4 * j + e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        alpha[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(sc[4 * j + e] - m[e / 2]);
+          sc[4 * j + e] = p;
+          sum[e / 2] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+    };
+    auto release = [&](int it) {
+      if (lane == 0) mbar_arrive(bar_empty + 8 * (it % L::kStages));
+    };
+
+    // Software pipeline over the KV walk: the tensor cores get S(it) =
+    // Q K(it)^T and then O += P(it - 1) V(it - 1); the warpgroup waits
+    // only for the first, runs softmax(it) beside the P V product, and
+    // rescales O once that product is done.
+    float sc[kBN / 2];
+    uint32_t pa[kBN / 16][4];
+    float alpha[2];
+    mbar_wait(bar_q, 0);
+    if (n > 0) {
+      wg_fence();
+      issue_s(sc, 0);
+      wg_wait<0>();
+      fence_regs(sc);
+      softmax(sc, 0, alpha);
+      to_a_operand<kBN>(sc, pa);
+    }
+    for (int it = 1; it < n; ++it) {
+      wg_fence();
+      issue_s(sc, it);
+      issue_pv(pa, it - 1);
+      wg_wait<1>();                  // S(it) is done, P V may still run
+      fence_regs(sc);
+      softmax(sc, it, alpha);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);                // P(it - 1) stays put until here
+      release(it - 1);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+      to_a_operand<kBN>(sc, pa);
+    }
+    if (n > 0) {
+      wg_fence();
+      issue_pv(pa, n - 1);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      release(n - 1);
+    }
+
+    // out = O / l and lse, straight from the fragment
+    const int d = a.d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = fmaxf(quad_sum(l[i]), 1e-30f);
+      const int qi = i0 + kRows * wg + 16 * warp + qr + 8 * i;
+      if (qi >= a.t) continue;
+      const size_t row = (size_t)bh * a.t + qi;
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + row * d;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int c = 8 * j + qc;
+        if (c < d)
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+              o[4 * j + 2 * i] / li, o[4 * j + 2 * i + 1] / li);
+      }
+      if (a.lse_out != nullptr && lane % 4 == 0)
+        a.lse_out[row] = (m[i] + log2f(li)) / kLog2e;
+    }
+  }
+}
+
+// ------------------------------------------------------ B3 dk/dv, bf16
+
+template <int HD> struct Dkv {
+  static constexpr int kBQ = 64;            // q rows per ring stage
+  static constexpr int kStages = 2;
+  static constexpr int kPanels = HD / 64;
+  static constexpr uint32_t kKvWg = kPanels * kRows * kPanelRow;  // K or V
+  static constexpr uint32_t kQt = kPanels * kBQ * kPanelRow;      // Q or dO
+  static constexpr uint32_t kRowVec = kBQ * 4;                    // lse or D
+  // lse and D padded so that every stage starts on a 1024-byte swizzle
+  // atom, as the swizzled tiles need
+  static constexpr uint32_t kStage = 2 * kQt + 1024;
+  static constexpr uint32_t kLoaded = 2 * kQt + 2 * kRowVec;  // per stage
+  static_assert(2 * kRowVec <= 1024, "lse and D fit the pad");
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + kConsumers * kKvWg;
+  static constexpr uint32_t kRing = kV + kConsumers * kKvWg;
+  static constexpr uint32_t kBars = kRing + kStages * kStage;
+  // kv, full[S], empty[S]; + slack to align the base to 1024
+  static constexpr uint32_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// B3 in bf16, replaces `_flash_bwd_dkv_kernel` (ops/attention.py:635).
+// One CTA per (128-row KV tile, b * h_kv); consumer warpgroup w owns KV
+// rows [64 w, 64 w + 64) of the tile and keeps their dK and dV in
+// registers while the CTA walks every head of its GQA group and the q
+// tiles that can see its columns: no atomics, the same result from run
+// to run. Per q tile: S^T = K Q^T and dP^T = V dO^T by wgmma from shared
+// memory, P^T and dS^T = P^T (dP^T - D) on the fragments, then dV +=
+// P^T dO and dK += dS^T Q with P^T and dS^T from registers.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_lse,
+                              const __grid_constant__ CUtensorMap tm_dd,
+                              const Args a) {
+  using L = Dkv<HD>;
+  constexpr int kBQ = L::kBQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_kv = base + L::kBars;
+  const uint32_t bar_full = bar_kv + 8;             // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;
+
+  const int kvh = blockIdx.x;                       // b * h_kv + kv head
+  const int c0 = blockIdx.y * (kConsumers * kRows);  // longest causal first
+  const int cols = min(kConsumers * kRows, a.tkv - c0);
+  const int group = a.h / a.h_kv;
+  const int bb = kvh / a.h_kv;
+  const int hk = kvh - bb * a.h_kv;
+  int lo, hi;
+  q_tiles(a, c0, c0 + cols - 1, kBQ, &lo, &hi);
+  const int tiles = hi - lo;
+  const int n = group * tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      // KV rows wholly past tkv are not loaded; they are never stored
+      const int live = (cols + kRows - 1) / kRows;
+      mbar_expect(bar_kv, 2 * live * L::kKvWg);
+      for (int w = 0; w < live; ++w)
+        for (int p = 0; p < L::kPanels; ++p) {
+          const uint32_t off = w * L::kKvWg + p * kRows * kPanelRow;
+          tma_load_3d(base + L::kK + off, &tm_k, bar_kv, 64 * p,
+                      c0 + kRows * w, kvh);
+          tma_load_3d(base + L::kV + off, &tm_v, bar_kv, 64 * p,
+                      c0 + kRows * w, kvh);
+        }
+      for (int it = 0; it < n; ++it) {
+        const int s = it % L::kStages;
+        if (it >= L::kStages)
+          mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
+        const int bh = bb * a.h + hk * group + it / tiles;
+        const int i0 = (lo + it % tiles) * kBQ;
+        const uint32_t st = base + L::kRing + s * L::kStage;
+        const uint32_t bar = bar_full + 8 * s;
+        mbar_expect(bar, L::kLoaded);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_3d(st + p * kBQ * kPanelRow, &tm_q, bar, 64 * p, i0, bh);
+          tma_load_3d(st + L::kQt + p * kBQ * kPanelRow, &tm_do, bar, 64 * p,
+                      i0, bh);
+        }
+        // rows past t read the next head's (or zeros): always masked
+        tma_load_2d(st + 2 * L::kQt, &tm_lse, bar, bh * a.t + i0, 0);
+        tma_load_2d(st + 2 * L::kQt + L::kRowVec, &tm_dd, bar, bh * a.t + i0,
+                    0);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int qr = lane / 4, qc = 2 * (lane % 4);
+    const uint32_t k_s = base + L::kK + wg * L::kKvWg;
+    const uint32_t v_s = base + L::kV + wg * L::kKvWg;
+    const int cw = c0 + kRows * wg;                   // first KV column
+    const int kc = cw + 16 * warp + qr;               // this thread's
+    const float qk_scale = a.scale * kLog2e;
+    const float* ring = reinterpret_cast<const float*>(
+        smem_raw + (base - smem_addr(smem_raw)) + L::kRing);
+
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    for (int it = 0; it < n; ++it) {
+      const int s = it % L::kStages;
+      const int i0 = (lo + it % tiles) * kBQ;
+      const uint32_t q_st = base + L::kRing + s * L::kStage;
+      const uint32_t do_st = q_st + L::kQt;
+      const float* lse = ring + (s * L::kStage + 2 * L::kQt) / 4;
+      const float* dd = lse + kBQ;
+
+      float st[kBQ / 2], dpt[kBQ / 2];
+      mbar_wait(bar_full + 8 * s, (it / L::kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
+        const uint32_t qoff = (k / 4) * kBQ * kPanelRow + (k % 4) * 32;
+        wgmma_ss(st, desc(k_s + off, 16, kAtom), desc(q_st + qoff, 16, kAtom),
+                 k > 0);
+      }
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
+        const uint32_t qoff = (k / 4) * kBQ * kPanelRow + (k % 4) * 32;
+        wgmma_ss(dpt, desc(v_s + off, 16, kAtom),
+                 desc(do_st + qoff, 16, kAtom), k > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T (set to 0 where the mask hides the pair, and for q rows past
+      // t) and dS^T = P^T (dP^T - D), on the fragments: KV row kc + 8 i,
+      // q row i0 + 8 j + qc + e
+      const int g0 = a.row_offset + i0;
+      const bool full = i0 + kBQ <= a.t &&
+                        unmasked(a, g0, g0 + kBQ - 1, cw, cw + kRows - 1);
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + qc + e % 2;
+          float p = ex2(st[4 * j + e] * qk_scale - lse[r] * kLog2e);
+          if (!full && !(i0 + r < a.t && visible(a, g0 + r, kc + 8 * (e / 2))))
+            p = 0.f;
+          st[4 * j + e] = p;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - dd[r]);
+        }
+      uint32_t pa[kBQ / 16][4], dsa[kBQ / 16][4];
+      to_a_operand<kBQ>(st, pa);
+      to_a_operand<kBQ>(dpt, dsa);
+
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < kBQ / 16; ++k)
+        wgmma_rs(dv, pa[k],
+                 desc(do_st + k * 16 * kPanelRow, kBQ * kPanelRow, kAtom));
+#pragma unroll
+      for (int k = 0; k < kBQ / 16; ++k)
+        wgmma_rs(dk, dsa[k],
+                 desc(q_st + k * 16 * kPanelRow, kBQ * kPanelRow, kAtom));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // dk = dS^T Q / sqrt(d) and dv, straight from the fragments
+    const int d = a.d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = kc + 8 * i;
+      if (c >= a.tkv) continue;
+      const size_t row = ((size_t)kvh * a.tkv + c) * d;
+      __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(a.dk) + row;
+      __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(a.dv) + row;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + qc;
+        if (col >= d) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dk_out + col) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * i] * a.scale,
+                                  dk[4 * j + 2 * i + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_out + col) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace sm90
+
 // --------------------------------------------------------------- launch
 
 template <typename K>
@@ -671,6 +1399,112 @@ int launch_dkv(const Args& a, cudaStream_t s) {
   if (int e = prepare(flash_bwd_dkv_kernel<T>, smem)) return e;
   const dim3 grid(a.b * a.h_kv, (a.tkv + Cfg<T>::kB - 1) / Cfg<T>::kB);
   flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------- TMA descriptors
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
+// that the library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [heads, rows, d] bf16 tensor read as boxes of 64 columns x `box`
+// rows of one head, 128-byte swizzled; out-of-range rows and columns
+// arrive as zeros
+int rows_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads,
+             int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return (int)cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t boxes[3] = {64, (cuuint32_t)box, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, boxes, steps,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a flat f32 vector of n read as boxes of `box` values (a 2-D map of
+// one row: its stride is never stepped)
+int vec_map(CUtensorMap* map, const float* ptr, size_t n, int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return (int)cudaErrorMisalignedAddress;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, 1};
+  const cuuint64_t strides[1] = {((cuuint64_t)n * 4 + 15) / 16 * 16};
+  const cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<float*>(ptr), dims, strides, boxes, steps,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch_fwd_sm90(const Args& a, cudaStream_t s) {
+  using L = sm90::Fwd<HD>;
+  CUtensorMap tq, tk, tv;
+  if (int e = rows_map(&tq, a.q, a.d, a.t, a.b * a.h, sm90::kRows)) return e;
+  if (int e = rows_map(&tk, a.k, a.d, a.tkv, a.b * a.h_kv, L::kBN)) return e;
+  if (int e = rows_map(&tv, a.v, a.d, a.tkv, a.b * a.h_kv, L::kBN)) return e;
+  if (int e = prepare(sm90::flash_fwd_kernel_sm90<HD>, L::kSmem)) return e;
+  constexpr int kTile = sm90::kConsumers * sm90::kRows;
+  const dim3 grid(a.b * a.h, (a.t + kTile - 1) / kTile);
+  sm90::flash_fwd_kernel_sm90<HD>
+      <<<grid, sm90::kThreads, L::kSmem, s>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkv_sm90(const Args& a, cudaStream_t s) {
+  using L = sm90::Dkv<HD>;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdd;
+  const size_t rows = (size_t)a.b * a.h * a.t;
+  if (int e = rows_map(&tq, a.q, a.d, a.t, a.b * a.h, L::kBQ)) return e;
+  if (int e = rows_map(&tdo, a.dout, a.d, a.t, a.b * a.h, L::kBQ)) return e;
+  if (int e = rows_map(&tk, a.k, a.d, a.tkv, a.b * a.h_kv, sm90::kRows))
+    return e;
+  if (int e = rows_map(&tv, a.v, a.d, a.tkv, a.b * a.h_kv, sm90::kRows))
+    return e;
+  if (int e = vec_map(&tlse, a.lse_in, rows, L::kBQ)) return e;
+  if (int e = vec_map(&tdd, a.dd, rows, L::kBQ)) return e;
+  if (int e = prepare(sm90::flash_bwd_dkv_kernel_sm90<HD>, L::kSmem)) return e;
+  constexpr int kTile = sm90::kConsumers * sm90::kRows;
+  const dim3 grid(a.b * a.h_kv, (a.tkv + kTile - 1) / kTile);
+  sm90::flash_bwd_dkv_kernel_sm90<HD>
+      <<<grid, sm90::kThreads, L::kSmem, s>>>(tq, tdo, tk, tv, tlse, tdd, a);
   return (int)cudaGetLastError();
 }
 
@@ -716,7 +1550,8 @@ extern "C" int flash_attention_forward_launch(
   a.lse_out = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd<float>(a, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(a, s);
+  if (dtype == 1)
+    return d <= 64 ? launch_fwd_sm90<64>(a, s) : launch_fwd_sm90<128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -759,7 +1594,8 @@ extern "C" int flash_attention_backward_dkv_launch(
   a.dv = dv;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dkv<float>(a, s);
-  if (dtype == 1) return launch_dkv<__nv_bfloat16>(a, s);
+  if (dtype == 1)
+    return d <= 64 ? launch_dkv_sm90<64>(a, s) : launch_dkv_sm90<128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

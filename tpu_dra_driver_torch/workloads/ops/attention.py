@@ -440,8 +440,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`attention_reference`. ``block_q`` and ``block_kv`` are
     checked as the reference checks them (a sequence with no block
     divisor of at least 128 raises) but do not set the tiles: the CUDA
-    kernels choose their own (64 rows in bf16, 32 in f32). The kernels
-    take a head dim that is a multiple of 16, at most 128."""
+    kernels choose their own (in bf16, 128 q rows by 128 KV rows in the
+    forward, 128 KV rows by 64 q rows in dk/dv, 64 by 64 in dq; 32 rows
+    in f32). The kernels take a head dim that is a multiple of 16, at
+    most 128."""
     _check_flash_args(q, k, v, causal, block_q, block_kv, window,
                       row_offset, prefix)
     return _FlashAttention.apply(q, k, v, causal, window, row_offset,
