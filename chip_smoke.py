@@ -9,8 +9,12 @@ run when it fails:
 2. build: the CUDA kernels from the sources in the checkout, one nvcc
    per source, all started together (sm_90a);
 3. paged kernel: the paged-attention decode kernel (B4) against its
-   plain PyTorch version at the full-width serving shapes, in bf16
-   (timed, with its bound and a library call as yardstick) and in f32;
+   plain PyTorch version at the full-width serving shapes and at the
+   edges of its split (rows ending one token into a 64-token chunk, rows
+   of one chunk, 16-token blocks), in f32 and in bf16, the bf16 results
+   row by row against an f32 reference with a 64-slot sub-tile left out
+   shown to break that allowance (timed, with its bound and a library
+   call as yardstick; its two launches are timed apart at the end);
 4. flash kernels: the flash-attention forward (B1), dq (B2) and dk/dv
    (B3) kernels against their plain versions over every mask form in
    f32, over every mask form in bf16 (ragged tiles, GQA, head dims 16 to
@@ -27,7 +31,9 @@ run when it fails:
    1024, 8 heads over 4 KV heads, 6 layers, RoPE, bf16; six prompts of
    256-512 tokens, 96 new tokens each) through ``ServingEngine.run``,
    with B4's launches counted over that run, then ``serving_throughput``
-   (the engine against per-request ``generate()``, same outputs);
+   (the engine against per-request ``generate()``, same outputs), then
+   the run once more under ``torch.profiler`` for B4's share of its
+   device time;
 8. generation parity: a small GQA/RoPE config in fp32, greedy
    ``generate`` and teacher-forced ``decode_step`` on the card and on the
    CPU (full-length cache, int8 cache, a wrapped ring, chunked prefill),
@@ -47,7 +53,10 @@ run when it fails:
    ``default_optimizer()``; flash attention) for one untimed and three
    timed steps, with B1-B3's launches counted over the timed steps, one
    more step under ``torch.profiler`` for its device time by kernel, and
-   one of its blocks at b=1 on the card against the CPU.
+   one of its blocks at b=1 on the card against the CPU;
+12. paged kernel per launch: B4's split and merge kernels timed apart
+   under ``torch.profiler`` at phase 3's serving read. Every use of the
+   profiler follows the wall-clock readings of its phase.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the device
 line ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -95,13 +104,9 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
-# kernel vs plain tolerances. bf16: P is rounded to bf16 against the
-# running max in the kernel and against the final max in the plain
-# version, and the output is rounded to bf16 (2^-8 relative) on both
-# sides; outputs are O(1) at most, so 1e-2 absolute. f32: summation
-# order only, over at most 1024 terms; one token masked wrongly moves a
-# row by ~1/len >= 1e-3.
-TOL_BF16 = 1e-2
+# kernel vs plain tolerance in f32: summation order only, over at most
+# 1024 terms; one token masked wrongly moves a row by ~1/len >= 1e-3.
+# (bf16 results are held row by row against an f32 reference: below.)
 TOL_F32 = 1e-5
 # card vs CPU, fp32 engine: cuBLAS and the CPU BLAS sum in other orders
 TOL_ENGINE_LOGITS = 1e-4
@@ -153,6 +158,21 @@ DECODE_RING = (256, 1000)
 # the sub-tile (slots) whose omission from the middle of the live range
 # the bf16 and int8 allowances must see in every row
 DECODE_MUTANT_TILE = 64
+# paged decode (B4) at the full-width serving read: a length-0 row, rows
+# ending on a block edge (512, 1024), a 1-token row
+PAGED_LENS = (0, 512, 1024, 1, 700, 129, 383, 960)
+# ... at the edges of its split into chunks of 64 tokens (rows ending one
+# token into a chunk, rows of exactly one chunk or of whole chunks), with
+# 128-token blocks (two chunks to a block) and with 16-token blocks (four
+# blocks to a chunk): name -> (block_t, lens); the walk covers the
+# longest row's blocks rounded up to a power of two, as the engine's
+PAGED_EDGE_CASES = {
+    "chunk_edges": (128, (65, 64, 0, 1, 128, 193, 575, 640)),
+    "block_t_16": (16, (65, 64, 17, 0, 1, 16, 300, 513)),
+}
+# the sub-tile (slots) whose omission from the middle of the longest row
+# the bf16 allowance must see in each of its query heads
+PAGED_MUTANT_TILE = 64
 # lse is f32 on both sides: summation order only
 TOL_FLASH_LSE = 1e-4
 # f32 mask cases: summation order only, relative to max(1, largest value)
@@ -188,6 +208,7 @@ FLASH_BF16_CASES = {
     "causal_ragged_192": ((1, 4, 1, 192, 192, 128), {}),
     "causal_d16": ((1, 2, 2, 128, 128, 16), {}),
     "causal_d96": ((1, 4, 2, 256, 256, 96), {}),
+    "row_offset_ragged_tkv": ((1, 4, 2, 96, 200, 64), dict(row_offset=104)),
 }
 
 # training, card vs CPU in fp32: losses to cuBLAS-vs-CPU summation
@@ -278,13 +299,16 @@ def time_ms(fn, iters: int = 50,
     return total / iters
 
 
-def paged_inputs(dtype, gen):
-    """Full-width decode shapes: b=8, h=8, h_kv=4, hd=128, block_t=128,
-    64 pool blocks, 32 table columns of which 8 are walked. Rows: a
-    length-0 row, rows ending on a block edge (512, 1024), a 1-token row;
-    table entries past each row's live range are not valid block ids."""
-    b, h, h_kv, hd, block_t, n_blocks, max_blocks = 8, 8, 4, 128, 128, 64, 32
-    lens = [0, 512, 1024, 1, 700, 129, 383, 960]
+def paged_inputs(dtype, gen, block_t=128, lens=PAGED_LENS, n_live=8):
+    """b=8, h=8, h_kv=4, hd=128 decode reads through a block table: by
+    default the full-width serving shapes (block_t 128, 64 pool blocks,
+    32 table columns of which 8 are walked). Each row's live blocks sit
+    at shuffled physical ids; table entries past a row's live range are
+    not valid block ids."""
+    b, h, h_kv, hd = 8, 8, 4, 128
+    need = sum(-(-n // block_t) for n in lens) + 1
+    n_blocks = max(64, need)
+    max_blocks = max(32, n_live + 2)
     dev = DEV
     pool_k = torch.randn((n_blocks, h_kv, block_t, hd), generator=gen)
     pool_v = torch.randn((n_blocks, h_kv, block_t, hd), generator=gen)
@@ -298,30 +322,135 @@ def paged_inputs(dtype, gen):
         table[i, live:] = 1_000_000 + i
     return (q.to(dev, dtype), pool_k.to(dev, dtype), pool_v.to(dev, dtype),
             table.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev),
-            8)
+            n_live)
+
+
+def _paged_row_f32(q, pk, pv, table, lens, i, drop=None):
+    """Row ``i`` of the paged read in f32, straight from its blocks, with
+    the slots ``drop`` left out: [h, hd]."""
+    h, hd = q.shape[1], q.shape[3]
+    h_kv, block_t = pk.shape[1], pk.shape[2]
+    n = int(lens[i])
+    blocks = table[i, :-(-n // block_t)].long()
+
+    def slots(pool):
+        x = pool[blocks].float().transpose(0, 1).reshape(h_kv, -1, hd)
+        keep = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+        keep[n:] = False
+        if drop is not None:
+            keep[drop] = False
+        return x[:, keep]
+
+    k, v = slots(pk), slots(pv)
+    qg = q[i, :, 0].float().reshape(h_kv, h // h_kv, hd)
+    p = torch.softmax(torch.einsum("krd,ktd->krt", qg, k) / math.sqrt(hd),
+                      dim=-1)
+    return torch.einsum("krt,ktd->krd", p, v).reshape(h, hd)
+
+
+def _paged_check(label, inputs, mutant=False) -> float:
+    """B4 against its plain version on ``inputs``, returning the largest
+    |kernel - plain|: the launch without a host wait; length-0 rows
+    exactly 0; f32 within TOL_F32; bf16
+    row by row against an f32 reference within the allowance and, with
+    ``mutant``, a 64-slot sub-tile of the middle of the longest row shown
+    to break that allowance in each of the row's query heads."""
+    q, pk, pv, table, lens, n_live = inputs
+    with no_device_waits():         # the split is sized from host integers
+        got = pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
+    plain = pa.paged_decode_attention_plain(q, pk, pv, table, lens, n_live)
+    torch.cuda.synchronize()
+    err = (got.float() - plain.float()).abs().max().item()
+    empty = lens == 0
+    zero_rows = got[empty].abs().max().item() if empty.any() else 0.0
+    if zero_rows != 0.0:
+        raise AssertionError(f"B4 {label}: a length-0 row is not 0")
+    if q.dtype == torch.float32:
+        print(f"  {label} f32: max |kernel - plain| {err:.3e} (tolerance "
+              f"{TOL_F32:.0e}); length-0 rows 0")
+        if not err <= TOL_F32:
+            raise AssertionError(f"B4 disagrees with its plain version in "
+                                 f"f32, {label}: {err} > {TOL_F32}")
+        return err
+    ref = pa.paged_decode_attention_plain(q.float(), pk.float(), pv.float(),
+                                          table, lens, n_live)
+    reading = _bf16_reading(got, plain, ref)
+    note = ""
+    if mutant:
+        i = int(lens.argmax().item())
+        n = int(lens[i])
+        t0 = (n // 2) // PAGED_MUTANT_TILE * PAGED_MUTANT_TILE
+        cut = slice(t0, t0 + PAGED_MUTANT_TILE)
+        without = _paged_row_f32(q, pk, pv, table, lens, i, cut)
+        seen = (_row_err(without, ref[i, :, 0])
+                / _allowance(plain, ref)[i, :, 0])
+        note = (f"; row {i} (len {n}) without slots {cut.start}-"
+                f"{cut.stop - 1}: least {seen.min().item():.1f}, median "
+                f"{seen.median().item():.1f} times the allowance")
+        if not seen.min().item() > 1.0:
+            raise AssertionError(f"the B4 allowance would not see a sub-tile "
+                                 f"left out: {seen.min().item()}")
+    print(f"  {label} bf16: max |kernel - plain| {err:.3e}; worst row vs f32 "
+          f"{reading['kernel']:.3e} (plain {reading['plain']:.3e}); over "
+          f"allowance {reading['over']:.3f}{note}")
+    if not reading["over"] <= 1.0:
+        raise AssertionError(f"B4 disagrees in bf16, {label}: "
+                             f"{reading['over']} of its allowance")
+    return err
+
+
+def paged_launch_phase(gen, iters: int = 20) -> dict:
+    """B4's two launches (split and merge) timed apart at phase 3's
+    serving read, each call after a flush of the L2: mean device ms per
+    launch over ``iters`` calls under ``torch.profiler``. It runs last,
+    after every wall-clock reading, as the parent's script first runs
+    the profiler only after its serving phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, pk, pv, table, lens, n_live = paged_inputs(torch.bfloat16, gen)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=DEV)
+    pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        for name in ("paged_decode_split", "paged_decode_merge"):
+            if e.device_type == DeviceType.CUDA and e.count and name in e.key:
+                found[name] = e.self_device_time_total / 1e3 / e.count
+    print(f"B4 per launch at phase 3's serving read: split "
+          f"{found.get('paged_decode_split', 0.0):.4f} ms, merge "
+          f"{found.get('paged_decode_merge', 0.0):.4f} ms")
+    if len(found) != 2:
+        raise AssertionError(f"the profiler saw B4's launches as {found}")
+    return found
 
 
 def kernel_phase(gen) -> dict:
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=DEV)
     result = {}
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-        q, pk, pv, table, lens, n_live = paged_inputs(dtype, gen)
-        got = pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
-        want = pa.paged_decode_attention_plain(q, pk, pv, table, lens, n_live)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        zero_row = got[0].abs().max().item()
-        print(f"{dtype}: max_abs_err {err:.3e} (tolerance {tol:.0e}); "
-              f"length-0 row max |out| {zero_row}")
-        if not err <= tol or zero_row != 0.0:
-            raise AssertionError(f"paged kernel disagrees with its plain "
-                                 f"version in {dtype}: {err} > {tol}")
-        result[str(dtype)] = err
-    # timings at the serving dtype: the inputs of the last (bf16) pass
+    for dtype in (torch.float32, torch.bfloat16):
+        result[str(dtype)] = _paged_check(
+            "serving shapes", paged_inputs(dtype, gen),
+            mutant=dtype == torch.bfloat16)
+        for name, (block_t, lens) in PAGED_EDGE_CASES.items():
+            n_live = 1 << (-(-max(lens) // block_t) - 1).bit_length()
+            inputs = paged_inputs(dtype, gen, block_t, lens, n_live)
+            err = _paged_check(f"{name} (block_t {block_t}, lens {lens}, "
+                               f"{n_live} blocks walked)", inputs)
+            result[str(dtype)] = max(result[str(dtype)], err)
+    # timings at the serving dtype and shapes
+    q, pk, pv, table, lens, n_live = paged_inputs(torch.bfloat16, gen)
     b, h, _, hd = q.shape
     h_kv, block_t = pk.shape[1], pk.shape[2]
     rep = h // h_kv
+    got = pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
     ms = time_ms(lambda: pa.paged_decode_attention(q, pk, pv, table, lens,
                                                    n_live), flush=flush)
     plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
@@ -357,10 +486,12 @@ def kernel_phase(gen) -> dict:
     n_flops = 4 * h * hd * live_tokens                   # QK and PV
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOP_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms (max |SDPA - kernel| {lib_err:.2e}); bound "
-          f"{bound_ms:.4f} ms ({n_bytes} bytes, {n_flops} flops); kernel "
-          f"at {100 * bound_ms / ms:.1f}% of bound")
+    print(f"bf16 kernel {ms:.4f} ms (both launches, "
+          f"{pa._n_split(n_live, block_t)} CTAs per (sequence, KV head); "
+          f"each launch is timed at the end), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max |SDPA - "
+          f"kernel| {lib_err:.2e}); bound {bound_ms:.4f} ms ({n_bytes} "
+          f"bytes, {n_flops} flops); kernel at {100 * bound_ms / ms:.1f}% "
+          f"of bound")
     return {"max_abs_err": result[str(torch.bfloat16)],
             "max_abs_err_f32": result[str(torch.float32)],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -466,7 +597,7 @@ def full_width_phase(card: str) -> dict:
     if not finite or not rel <= TOL_FULL_WIDTH_REL:
         raise AssertionError("full-width card and CPU decode steps disagree")
     return {"launches": launches, "tokens_per_s_wall": n_tok / wall,
-            "peak_mib": peak / 2**20}
+            "peak_mib": peak / 2**20, "wall_ms": 1e3 * wall}
 
 
 FLASH_KERNELS = (
@@ -926,7 +1057,7 @@ def decode_kernel_phase(gen) -> dict:
     return {"max_abs_err": max(errs), **out["bf16"]}
 
 
-def serving_throughput_phase(card: str) -> None:
+def serving_throughput_phase(card: str, run_ms: float) -> None:
     params = init_params(FULL, 3, device=DEV)
     rng = np.random.RandomState(4)
     prompts = [[int(t) for t in rng.randint(0, FULL.vocab, n)]
@@ -973,6 +1104,11 @@ def serving_throughput_phase(card: str) -> None:
                                  f"{off / scale}")
     print(f"  engine vs sequential generate() ({FULL_NEW_TOKENS} tokens "
           f"each; tolerance {TOL_TIE_REL:.3g}): " + "; ".join(parts))
+    # B4's share of the full-width serving run's device time: the run once
+    # more under the profiler, after the wall-clock readings above
+    eng = ServingEngine(params, FULL, device=DEV, **FULL_ENGINE)
+    _profile_step(lambda: eng.run(prompts, FULL_NEW_TOKENS), run_ms,
+                  SERVING_KERNEL_GROUPS, "serving run")
 
 
 def small_generation_phase() -> None:
@@ -1206,6 +1342,11 @@ KERNEL_GROUPS = (
     ("flash dk/dv (B3)", ("flash_bwd_dkv_kernel",)),
     ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
 )
+# ... and of the serving engine's run
+SERVING_KERNEL_GROUPS = (
+    ("paged decode (B4)", ("paged_decode",)),
+    ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
+)
 # ... and of a decode step
 DECODE_KERNEL_GROUPS = (
     ("flash decode (B5)", ("decode_kernel", "combine_kernel")),
@@ -1378,7 +1519,7 @@ def main() -> int:
 
     phase("full-width serving")
     served = full_width_phase(smi)
-    serving_throughput_phase(smi)
+    serving_throughput_phase(smi, served["wall_ms"])
 
     phase("generation on the card vs on the CPU (fp32, small)")
     small_generation_phase()
@@ -1391,6 +1532,9 @@ def main() -> int:
 
     phase("full-width training")
     launches = full_width_training_phase(smi, flash)
+
+    phase("paged kernel per launch")
+    paged_launch_phase(gen)
 
     rows = [{
         "name": "paged_decode_attention",

@@ -50,6 +50,8 @@ CASES = {
     "row_offset": ((1, 2, 1, 128, 256, 32), dict(row_offset=128)),
     "prefix": ((1, 2, 1, 256, 256, 32), dict(prefix=100)),
     "noncausal_tkv_ne_t": ((1, 2, 1, 128, 256, 32), dict(causal=False)),
+    # a chunk whose KV length is no multiple of the kernels' 64-row tiles
+    "row_offset_ragged_tkv": ((1, 2, 1, 40, 100, 32), dict(row_offset=60)),
 }
 
 

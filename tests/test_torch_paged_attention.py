@@ -9,6 +9,8 @@ kernel and against the final max in the plain version, about one bf16
 ulp (2^-8) of each weight.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,19 +24,20 @@ TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
 
-def _case(lens, seed=0, garbage=True):
+def _case(lens, seed=0, garbage=True, block_t=BLOCK_T,
+          max_blocks=MAX_BLOCKS, n_blocks=N_BLOCKS):
     """Random pools with each row's live blocks at shuffled physical ids
     (block 0 stays the null block) and, when ``garbage``, table entries
     past the live range that are not valid block ids."""
     rng = np.random.default_rng(seed)
-    pool_k = rng.standard_normal((N_BLOCKS, H_KV, BLOCK_T, HD)).astype(
+    pool_k = rng.standard_normal((n_blocks, H_KV, block_t, HD)).astype(
         np.float32)
     pool_v = rng.standard_normal(pool_k.shape).astype(np.float32)
     q = rng.standard_normal((B, H, 1, HD)).astype(np.float32)
-    phys = iter(rng.permutation(np.arange(1, N_BLOCKS)))
-    table = np.zeros((B, MAX_BLOCKS), np.int32)
+    phys = iter(rng.permutation(np.arange(1, n_blocks)))
+    table = np.zeros((B, max_blocks), np.int32)
     for i, n in enumerate(lens):
-        live = -(-n // BLOCK_T)
+        live = -(-n // block_t)
         for j in range(live):
             table[i, j] = next(phys)
         if garbage:
@@ -84,6 +87,47 @@ def test_kernel_path_matches_pallas_kernel_bf16():
     got = _port(*case, 4, dtype=torch.bfloat16)
     want = _jax_kernel(*case, 4, dtype=jnp.bfloat16)
     np.testing.assert_allclose(got, want, **TOL["bfloat16"])
+
+
+# the edges of the kernel's split into chunks of 64 tokens: rows ending
+# one token into a chunk (65, 129), rows of exactly one or two chunks (64,
+# 128), chunks spanning several blocks (block_t 8 and 16) and blocks
+# spanning several chunks (block_t 128); the walk is the longest row's
+# blocks rounded up to a power of two, as the engine's bucket
+@pytest.mark.parametrize("block_t,lens,dtype", [
+    (8, (65, 64, 0, 1), torch.float32),
+    (8, (129, 128, 63, 7), torch.float32),
+    (16, (65, 64, 17, 129), torch.float32),
+    (16, (65, 1, 0, 64), torch.bfloat16),
+    (128, (65, 64, 0, 200), torch.float32),
+])
+def test_split_edges_match_pallas_kernel(block_t, lens, dtype):
+    live = -(-max(lens) // block_t)
+    n_live = 1 << (live - 1).bit_length()
+    case = _case(lens, seed=block_t + len(lens), block_t=block_t,
+                 max_blocks=n_live + 2,
+                 n_blocks=sum(-(-n // block_t) for n in lens) + 1)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    got = _port(*case, n_live, dtype=dtype)
+    want = _jax_kernel(*case, n_live, dtype=jdtype)
+    tol = TOL[np.float32] if dtype == torch.float32 else TOL["bfloat16"]
+    np.testing.assert_allclose(got, want, **tol)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any(), "a length-0 row gives 0"
+
+
+def test_split_covers_the_walk_in_chunks():
+    # CTAs per (sequence, KV head): chunks of 64 tokens over the walk
+    assert tpa._n_split(8, 128) == 16          # the serving read
+    assert tpa._n_split(1, 8) == 1             # one CTA writes the output
+    assert tpa._n_split(8, 8) == 1
+    assert tpa._n_split(9, 8) == 2
+    assert tpa._n_split(5, 16) == 2
+    assert tpa._n_split(1, 128) == 2           # two chunks share a block
+    # the wrapper's chunk is the kernel's
+    src = (Path(tpa.__file__).parents[1] / "csrc" / "paged_attention.cu")
+    assert f"constexpr int kChunk = {tpa._CHUNK};" in src.read_text()
 
 
 def test_n_live_blocks_truncates_like_the_pallas_kernel():

@@ -38,8 +38,8 @@
 // (row, column) pair in the forward, 6 d in dq and 8 d in dk/dv, against
 // O(t d) bytes per head: thousands of operations per byte, far above the
 // H100's ~295 bf16 tensor-core operations per byte. So the kernels must
-// keep the tensor cores fed: every product of the bf16 forward and dk/dv
-// kernels is a Hopper warpgroup product (wgmma) and nothing else waits.
+// keep the tensor cores fed: every product of the bf16 kernels is a
+// Hopper warpgroup product (wgmma) and nothing else waits.
 //
 // Design. The TPU kernels carry their state across a sequential
 // superblock grid axis in VMEM scratch; Hopper has no ordered grid, so
@@ -51,46 +51,45 @@
 // window and prefix bounds, so tiles wholly outside the band are never
 // loaded, and the CTAs with the most tiles are launched first.
 //
-// bf16 forward (B1) and dk/dv (B3), sm_90a only, along the lines of
-// FlashAttention-3: a CTA is two consumer warpgroups and one producer
-// warp(group). The producer's one thread streams tiles with TMA
+// bf16 forward (B1), dq (B2) and dk/dv (B3), sm_90a only, along the
+// lines of FlashAttention-3: a CTA is two consumer warpgroups and one
+// producer warp(group). The producer's one thread streams tiles with TMA
 // (128-byte swizzled panels of 64 columns; rows and columns past the
-// tensor's edge arrive as zeros) through a ring of shared memory
-// guarded by mbarriers (three stages in B1, two in B3), so the next tile
+// tensor's edge arrive as zeros) through a ring of shared memory guarded
+// by mbarriers (three stages in B1 and B2, two in B3), so the next tile
 // is in flight while the consumers multiply the current one. Each
-// consumer warpgroup owns 64 rows (B1: q rows of a 128-row tile; B3: KV
-// rows of a 128-row tile):
-// S = Q K^T (B3: S^T = K Q^T and dP^T = V dO^T) runs as wgmma from
-// shared memory into registers; the online softmax (B1) or P and dS
-// (B3) are formed on the accumulator fragment in registers, with quad
-// shuffles for the row max and sum, masked only on tiles that cross the
-// band's edge; P (B3: P^T, dS^T) is rounded to bf16 in registers and is
-// the register A operand of the second wgmma (O += P V; dV += P^T dO,
-// dK += dS^T Q) with B read MN-major from the same swizzled tiles. O, m
-// and l (B3: dK and dV) stay in registers for the whole walk and are
-// written once; setmaxnreg moves registers from the producer to the
-// consumers. B1 also pipelines its walk: the warpgroup waits only for
-// S of tile j, and its softmax runs while O += P V of tile j - 1 is
-// still on the tensor cores. Head dims up to 64 and up to 128 are two
-// instantiations; the columns past d are zero-filled by TMA and never
-// stored.
+// consumer warpgroup owns 64 rows (B1, B2: q rows of a 128-row tile; B3:
+// KV rows of a 128-row tile), whose tiles (Q; Q, dO, lse and D; K and V)
+// arrive once:
+// S = Q K^T (B2 also dP = dO V^T; B3: S^T = K Q^T and dP^T = V dO^T)
+// runs as wgmma from shared memory into registers; the online softmax
+// (B1) or P and dS (B2, B3) are formed on the accumulator fragment in
+// registers, with quad shuffles for the row max and sum, masked only on
+// tiles that cross the band's edge; P (B2: dS; B3: P^T, dS^T) is rounded
+// to bf16 in registers and is the register A operand of the next wgmma
+// (O += P V; dQ += dS K; dV += P^T dO, dK += dS^T Q) with B read MN-major
+// from the same swizzled tiles, so nothing is transposed in memory. O, m
+// and l (B2: dQ; B3: dK and dV) stay in registers for the whole walk and
+// are written once; setmaxnreg moves registers from the producer to the
+// consumers. B1 and B2 also pipeline their walks: the warpgroup waits
+// only for the scores of tile j (B2: S and dP), and its softmax (B2: dS)
+// runs while the second product of tile j - 1 is still on the tensor
+// cores. B2 streams K and V in 64-row tiles, so that dQ (HD / 2 f32 a
+// thread), S, dP and the dS operand fit the registers. Head dims up to
+// 64 and up to 128 are two instantiations; the columns past d are
+// zero-filled by TMA and never stored.
 //
 // The f32 instantiations multiply with plain FMAs on 32-row tiles in
 // shared memory, so their comparison with the plain version is tight.
-// The dq kernel (B2) still runs WMMA (16x16x16, f32 accumulate) from
-// 64-row bf16 tiles in shared memory, with its accumulator there too.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -98,12 +97,8 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxHeadDim = 128;
 
-// rows per tile and row padding (elements) of the dtype's tiles
+// rows per tile and row padding (elements) of the f32 kernels' tiles
 template <typename T> struct Cfg;
-template <> struct Cfg<__nv_bfloat16> {
-  static constexpr int kB = 64;
-  static constexpr int kPad = 8;
-};
 template <> struct Cfg<float> {
   static constexpr int kB = 32;
   static constexpr int kPad = 4;
@@ -115,10 +110,6 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -250,36 +241,14 @@ template <typename T>
 __device__ void mm_abt(const T* A, const T* Bm, int ld, int d, float* C,
                        int ldc) {
   constexpr int B = Cfg<T>::kB;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5;
-    constexpr int tn = B / 16;
-    for (int tile = warp; tile < tn * tn; tile += kWarps) {
-      const int tr = tile / tn;
-      const int tc = tile - tr * tn;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < d; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, A + tr * 16 * ld + k0, ld);
-        wmma::load_matrix_sync(fb, Bm + tc * 16 * ld + k0, ld);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(C + tr * 16 * ldc + tc * 16, c, ldc,
-                              wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < B * B; i += kThreads) {
-      const int r = i / B;
-      const int c = i - r * B;
-      const T* ar = A + r * ld;
-      const T* br = Bm + c * ld;
-      float s = 0.f;
-      for (int k = 0; k < d; ++k) s = fmaf(to_f(ar[k]), to_f(br[k]), s);
-      C[r * ldc + c] = s;
-    }
+  for (int i = threadIdx.x; i < B * B; i += kThreads) {
+    const int r = i / B;
+    const int c = i - r * B;
+    const T* ar = A + r * ld;
+    const T* br = Bm + c * ld;
+    float s = 0.f;
+    for (int k = 0; k < d; ++k) s = fmaf(to_f(ar[k]), to_f(br[k]), s);
+    C[r * ldc + c] = s;
   }
 }
 
@@ -288,35 +257,13 @@ template <typename T>
 __device__ void mm_ab_acc(const T* A, int lda, const T* Bm, int ldb, int d,
                           float* C, int ldc) {
   constexpr int B = Cfg<T>::kB;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5;
-    const int tn = d / 16;
-    for (int tile = warp; tile < (B / 16) * tn; tile += kWarps) {
-      const int tr = tile / tn;
-      const int tc = tile - tr * tn;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      float* cp = C + tr * 16 * ldc + tc * 16;
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      for (int k0 = 0; k0 < B; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, A + tr * 16 * lda + k0, lda);
-        wmma::load_matrix_sync(fb, Bm + k0 * ldb + tc * 16, ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < B * d; i += kThreads) {
-      const int r = i / d;
-      const int c = i - r * d;
-      const T* ar = A + r * lda;
-      float s = C[r * ldc + c];
-      for (int k = 0; k < B; ++k) s = fmaf(to_f(ar[k]), to_f(Bm[k * ldb + c]), s);
-      C[r * ldc + c] = s;
-    }
+  for (int i = threadIdx.x; i < B * d; i += kThreads) {
+    const int r = i / d;
+    const int c = i - r * d;
+    const T* ar = A + r * lda;
+    float s = C[r * ldc + c];
+    for (int k = 0; k < B; ++k) s = fmaf(to_f(ar[k]), to_f(Bm[k * ldb + c]), s);
+    C[r * ldc + c] = s;
   }
 }
 
@@ -467,12 +414,13 @@ template <typename T> struct DqLayout {
   }
 };
 
-// B2, replaces `_flash_bwd_dq_kernel` (ops/attention.py:528). Bound by
-// operations: 6 d per visible pair. One CTA per (q tile, b * h) holds q,
-// dO, lse and D for its rows and the dq accumulator, rebuilds P from
-// (q, k, lse) tile by tile and never writes P or dS out.
+// B2 in f32, replaces `_flash_bwd_dq_kernel` (ops/attention.py:528);
+// bf16 takes `flash_bwd_dq_kernel_sm90`. One CTA per (q tile, b * h)
+// holds q, dO, lse and D for its rows and the dq accumulator, rebuilds P
+// from (q, k, lse) tile by tile and never writes P or dS out.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs the sm90 kernel");
   constexpr int B = Cfg<T>::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   const int d = a.d;
@@ -1361,6 +1309,247 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------------ B2 dq, bf16
+
+template <int HD> struct Dq {
+  static constexpr int kBN = 64;            // KV rows per ring stage
+  // three stages: the pipelined walk holds tiles it - 1 (K, for dQ) and
+  // it (K and V, for S and dP) while the producer fills the next
+  static constexpr int kStages = 3;
+  static constexpr int kPanels = HD / 64;
+  static constexpr uint32_t kQWg = kPanels * kRows * kPanelRow;  // Q or dO
+  static constexpr uint32_t kKv = kPanels * kBN * kPanelRow;     // K or V
+  static constexpr uint32_t kRowVec = kConsumers * kRows * 4;    // lse or D
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kQ + kConsumers * kQWg;
+  static constexpr uint32_t kLse = kDo + kConsumers * kQWg;
+  static constexpr uint32_t kDd = kLse + kRowVec;
+  // lse and D padded to a 1024-byte swizzle atom, as the K tiles need
+  static constexpr uint32_t kK = kLse + 1024;
+  static_assert(2 * kRowVec <= 1024, "lse and D fit the pad");
+  static constexpr uint32_t kV = kK + kStages * kKv;
+  static constexpr uint32_t kBars = kV + kStages * kKv;
+  // q, full[S], empty[S]; + slack to align the base to 1024
+  static constexpr uint32_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// B2 in bf16, replaces `_flash_bwd_dq_kernel` (ops/attention.py:528). One
+// CTA per (128-row q tile, b * h), the longest causal rows first;
+// consumer warpgroup w owns q rows [64 w, 64 w + 64) of the tile and
+// keeps their dQ in registers while the producer streams the KV tiles
+// the rows can see, 64 rows at a time. Per KV tile: S = Q K^T and dP =
+// dO V^T by wgmma from shared memory, P = exp2(S scale log2e - lse
+// log2e) and dS = P (dP - D) on the fragments, then dQ += dS K with dS
+// from registers and K read MN-major from the same swizzled tile.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_lse,
+                             const __grid_constant__ CUtensorMap tm_dd,
+                             const Args a) {
+  using L = Dq<HD>;
+  constexpr int kBN = L::kBN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_full = bar_q + 8;              // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;
+
+  const int bh = blockIdx.x;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * (kConsumers * kRows);
+  const int rows = min(kConsumers * kRows, a.t - i0);
+  const int kvh = (bh / a.h) * a.h_kv + (bh % a.h) / (a.h / a.h_kv);
+  int lo, hi;
+  kv_tiles(a, a.row_offset + i0, a.row_offset + i0 + rows - 1, kBN, &lo, &hi);
+  const int n = hi - lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      // q rows wholly past t are not loaded; their rows are never stored.
+      // lse and D of rows past t are the next head's (or zeros): masked
+      const int live = (rows + kRows - 1) / kRows;
+      mbar_expect(bar_q, 2 * live * L::kQWg + 2 * L::kRowVec);
+      for (int w = 0; w < live; ++w)
+        for (int p = 0; p < L::kPanels; ++p) {
+          const uint32_t off = w * L::kQWg + p * kRows * kPanelRow;
+          tma_load_3d(base + L::kQ + off, &tm_q, bar_q, 64 * p,
+                      i0 + kRows * w, bh);
+          tma_load_3d(base + L::kDo + off, &tm_do, bar_q, 64 * p,
+                      i0 + kRows * w, bh);
+        }
+      tma_load_2d(base + L::kLse, &tm_lse, bar_q, bh * a.t + i0, 0);
+      tma_load_2d(base + L::kDd, &tm_dd, bar_q, bh * a.t + i0, 0);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % L::kStages;
+        if (it >= L::kStages)
+          mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
+        const int c0 = (lo + it) * kBN;
+        const uint32_t bar = bar_full + 8 * s;
+        mbar_expect(bar, 2 * L::kKv);
+        for (int p = 0; p < L::kPanels; ++p) {
+          const uint32_t off = s * L::kKv + p * kBN * kPanelRow;
+          tma_load_3d(base + L::kK + off, &tm_k, bar, 64 * p, c0, kvh);
+          tma_load_3d(base + L::kV + off, &tm_v, bar, 64 * p, c0, kvh);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int qr = lane / 4, qc = 2 * (lane % 4);
+    const uint32_t q_s = base + L::kQ + wg * L::kQWg;
+    const uint32_t do_s = base + L::kDo + wg * L::kQWg;
+    const int lr = kRows * wg + 16 * warp + qr;       // this thread's rows
+    const int r0 = a.row_offset + i0 + kRows * wg;    // first global row
+    const bool rows_in = i0 + kRows * (wg + 1) <= a.t;
+    const float qk_scale = a.scale * kLog2e;
+
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(bar_q, 0);
+    // lse (in base 2) and D of rows lr and lr + 8
+    const float* vecs = reinterpret_cast<const float*>(
+        smem_raw + (base - smem_addr(smem_raw)) + L::kLse);
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lse2[i] = vecs[lr + 8 * i] * kLog2e;
+      dd[i] = vecs[kConsumers * kRows + lr + 8 * i];
+    }
+
+    // S = Q K^T and dP = dO V^T of tile `it`, issued and committed
+    auto issue_sdp = [&](float (&sc)[kBN / 2], float (&dp)[kBN / 2], int it) {
+      const int s = it % L::kStages;
+      const uint32_t k_s = base + L::kK + s * L::kKv;
+      const uint32_t v_s = base + L::kV + s * L::kKv;
+      mbar_wait(bar_full + 8 * s, (it / L::kStages) & 1);
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
+        const uint32_t koff = (k / 4) * kBN * kPanelRow + (k % 4) * 32;
+        wgmma_ss(sc, desc(q_s + off, 16, kAtom), desc(k_s + koff, 16, kAtom),
+                 k > 0);
+      }
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
+        const uint32_t koff = (k / 4) * kBN * kPanelRow + (k % 4) * 32;
+        wgmma_ss(dp, desc(do_s + off, 16, kAtom), desc(v_s + koff, 16, kAtom),
+                 k > 0);
+      }
+      wg_commit();
+    };
+    // dQ += dS K of tile `it`, issued and committed
+    auto issue_dq = [&](const uint32_t (&dsa)[kBN / 16][4], int it) {
+      const uint32_t k_s = base + L::kK + (it % L::kStages) * L::kKv;
+#pragma unroll
+      for (int k = 0; k < kBN / 16; ++k)
+        wgmma_rs(dq, dsa[k],
+                 desc(k_s + k * 16 * kPanelRow, kBN * kPanelRow, kAtom));
+      wg_commit();
+    };
+    // P (0 where the mask hides the pair, and on rows past t) and dS =
+    // P (dP - D) into dp, on the fragments: row lr + 8 i, column c0 + 8 j
+    // + qc + e % 2
+    auto form_ds = [&](const float (&sc)[kBN / 2], float (&dp)[kBN / 2],
+                       int it) {
+      const int c0 = (lo + it) * kBN;
+      const bool full =
+          rows_in && unmasked(a, r0, r0 + kRows - 1, c0, c0 + kBN - 1);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          float p = ex2(sc[4 * j + e] * qk_scale - lse2[i]);
+          if (!full && !(i0 + lr + 8 * i < a.t &&
+                         visible(a, a.row_offset + i0 + lr + 8 * i,
+                                 c0 + 8 * j + qc + e % 2)))
+            p = 0.f;
+          dp[4 * j + e] = p * (dp[4 * j + e] - dd[i]);
+        }
+    };
+    auto release = [&](int it) {
+      if (lane == 0) mbar_arrive(bar_empty + 8 * (it % L::kStages));
+    };
+
+    float sc[kBN / 2], dp[kBN / 2];
+    uint32_t dsa[kBN / 16][4];
+    // Software pipeline over the KV walk: the tensor cores get S(it) and
+    // dP(it), then dQ += dS(it - 1) K(it - 1); the warpgroup waits only
+    // for the first two, forms dS(it) beside the dQ product, and rounds
+    // it to the A operand once that product is done.
+    if (n > 0) {
+      wg_fence();
+      issue_sdp(sc, dp, 0);
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      form_ds(sc, dp, 0);
+      to_a_operand<kBN>(dp, dsa);
+    }
+    for (int it = 1; it < n; ++it) {
+      wg_fence();
+      issue_sdp(sc, dp, it);
+      issue_dq(dsa, it - 1);
+      wg_wait<1>();                  // S(it), dP(it) done; dQ may still run
+      fence_regs(sc);
+      fence_regs(dp);
+      form_ds(sc, dp, it);
+      wg_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);               // dS(it - 1) stays put until here
+      release(it - 1);
+      to_a_operand<kBN>(dp, dsa);
+    }
+    if (n > 0) {
+      wg_fence();
+      issue_dq(dsa, n - 1);
+      wg_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      release(n - 1);
+    }
+
+    // dq = dS K / sqrt(d), straight from the fragment
+    const int d = a.d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = i0 + lr + 8 * i;
+      if (qi >= a.t) continue;
+      __nv_bfloat16* out =
+          static_cast<__nv_bfloat16*>(a.dq) + ((size_t)bh * a.t + qi) * d;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int c = 8 * j + qc;
+        if (c < d)
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+              dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
+      }
+    }
+  }
+}
+
 }  // namespace sm90
 
 // --------------------------------------------------------------- launch
@@ -1488,6 +1677,26 @@ int launch_fwd_sm90(const Args& a, cudaStream_t s) {
 }
 
 template <int HD>
+int launch_dq_sm90(const Args& a, cudaStream_t s) {
+  using L = sm90::Dq<HD>;
+  constexpr int kTile = sm90::kConsumers * sm90::kRows;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdd;
+  const size_t rows = (size_t)a.b * a.h * a.t;
+  if (int e = rows_map(&tq, a.q, a.d, a.t, a.b * a.h, sm90::kRows)) return e;
+  if (int e = rows_map(&tdo, a.dout, a.d, a.t, a.b * a.h, sm90::kRows))
+    return e;
+  if (int e = rows_map(&tk, a.k, a.d, a.tkv, a.b * a.h_kv, L::kBN)) return e;
+  if (int e = rows_map(&tv, a.v, a.d, a.tkv, a.b * a.h_kv, L::kBN)) return e;
+  if (int e = vec_map(&tlse, a.lse_in, rows, kTile)) return e;
+  if (int e = vec_map(&tdd, a.dd, rows, kTile)) return e;
+  if (int e = prepare(sm90::flash_bwd_dq_kernel_sm90<HD>, L::kSmem)) return e;
+  const dim3 grid(a.b * a.h, (a.t + kTile - 1) / kTile);
+  sm90::flash_bwd_dq_kernel_sm90<HD>
+      <<<grid, sm90::kThreads, L::kSmem, s>>>(tq, tdo, tk, tv, tlse, tdd, a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
 int launch_dkv_sm90(const Args& a, cudaStream_t s) {
   using L = sm90::Dkv<HD>;
   CUtensorMap tq, tdo, tk, tv, tlse, tdd;
@@ -1572,7 +1781,8 @@ extern "C" int flash_attention_backward_dq_launch(
   a.dq = dq;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dq<float>(a, s);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(a, s);
+  if (dtype == 1)
+    return d <= 64 ? launch_dq_sm90<64>(a, s) : launch_dq_sm90<128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,8 @@
 //   table  [b, max_blocks] int32 physical block ids
 //   lens   [b] int32 visible tokens per sequence
 //   out    [b, h, 1, hd]                  q's dtype
+//   part   [b, h, n_split, hd + 2]        f32 scratch: each chunk's
+//                                         partial acc, m and l
 //
 // Semantics follow the TPU kernel: slots >= lens[seq] are masked, at
 // most `n_live_blocks` table columns are walked, a row with lens == 0
@@ -22,19 +24,37 @@
 // (2 * lens * h_kv * hd * sizeof(T) per sequence) against 4 * h * hd
 // multiply-adds per token, about one operation per byte, far below the
 // H100's ~295 operations per byte of bf16 tensor-core work, so the
-// least time is live K+V bytes over 3.35 TB/s.
+// least time is live K+V bytes over 3.35 TB/s. At the serving shapes
+// that is a few microseconds: the time goes to latency (launch, the
+// dependent reads of lens, table and K/V, the merge), so the design is
+// about putting every byte in flight at once on many SMs.
 //
-// Design: one CTA per (KV head, sequence). The CTA reads its own
-// lens[seq] and table[seq, j] (Hopper has no scalar prefetch) and loops
-// over the live blocks, which the TPU ran as a sequential grid axis. The
-// GQA group's `rep` query rows stay together in the CTA, so each K/V
-// tile is read from device memory once and serves every query head of
-// its group. Tiles are staged in shared memory in sub-tiles of at most
-// kSubT tokens with 16-byte loads, and only the valid rows of the last
-// block are read, so device traffic is O(lens). The softmax is the
-// online (running max / normaliser) form in f32. Not here yet: TMA,
-// wgmma, and a split of a sequence's blocks across CTAs; at the serving
-// shapes the grid is b * h_kv CTAs, far fewer than the 132 SMs.
+// Design (flash-decoding over the block table). The TPU walked a
+// sequence's blocks as a sequential grid axis; here each (sequence, KV
+// head)'s live range is cut into chunks of kChunk = 64 tokens, one CTA
+// each: grid (h_kv, b, n_split) with n_split = ceil(n_live_blocks *
+// block_t / 64) from host integers only, so the caller never waits for
+// the card. A CTA reads lens[seq] and exits at once when its chunk
+// starts past the row's end; otherwise it follows the table only for the
+// tokens its chunk covers (a chunk spans several table entries when
+// block_t < 64, and several chunks share one entry when block_t > 64),
+// so entries past a row's live range are never read. It issues every
+// 16-byte cp.async of its chunk's K (one group) and V (a second group)
+// up front, so the V loads are in flight while the scores are computed.
+// The GQA group's `rep` query rows stay together in the CTA, so each K/V
+// byte is read from device memory once. Inner loops give each thread
+// several slots and 16-byte loads: a score is one token's K row split
+// over 4 lanes (16-byte pieces against the q rows, kept in shared memory
+// as f32, 8 rows at a time in registers) and a quad shuffle; P.V gives
+// each group of lanes one 16-byte piece of the V rows, every lane of the
+// group a stride of tokens, and sums the group by shuffles. The chunk's
+// softmax is taken whole (its own max and sum), so each CTA writes its
+// partial (acc, m, l); a second kernel merges a row's live partials with
+// the usual rescaling and divides by max(l, 1e-30) (the fast division,
+// within 2 ulp, keeps the IEEE division's slow-path call and its stack
+// frame out of the split kernel). A row that one chunk covers (or of
+// length 0) is written by its first CTA and skipped by the merge, which
+// is not launched at all when n_split is 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,7 +64,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSubT = 64;        // tokens of K and V staged per step
+constexpr int kChunk = 64;                     // tokens per CTA
+constexpr int kTokLanes = kThreads / kChunk;   // lanes per score
+constexpr int kRowBlock = 8;                   // q rows per register block
+constexpr int kPad = 16;                       // bytes of padding per row
+constexpr size_t kMaxSmem = 227 * 1024;
 constexpr float kNegInf = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
@@ -65,6 +89,50 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
+// x rounded to T's precision, back in f32
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// one 16-byte piece of a cache row, widened to f32
+template <typename T> struct Piece;
+template <> struct Piece<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              float* o) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+};
+template <> struct Piece<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              float* o) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -76,179 +144,298 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-inline int sub_tokens(int block_t) { return block_t < kSubT ? block_t : kSubT; }
-
-template <typename T>
-size_t smem_bytes(int rep, int hd, int block_t) {
-  const size_t st = sub_tokens(block_t);
-  return 2 * st * hd * sizeof(T)                       // K and V sub-tiles
-         + (2 * (size_t)rep * hd                       // q rows, accumulator
-            + (size_t)rep * st                         // scores / probs
-            + 3 * (size_t)rep) * sizeof(float);        // m, l, alpha
+// the live tokens of a row: its length, at most n_live_blocks blocks
+__device__ __forceinline__ int live_len(const int* lens, int seq,
+                                        int n_live_blocks, int block_t) {
+  return min(lens[seq], n_live_blocks * block_t);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+size_t smem_bytes(int rep, int hd) {
+  const size_t row_stride = (size_t)hd * sizeof(T) + kPad;
+  return 2 * kChunk * row_stride                    // K and V rows
+         + ((size_t)rep * hd                        // q rows
+            + (size_t)rep * kChunk                  // scores, then P
+            + 2 * (size_t)rep) * sizeof(float);     // m, l
+}
+
+// grid (h_kv, b, n_split): CTA (head, seq, split) reads tokens [64 split,
+// 64 split + 64) of the row's live range
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ pool_k,
     const T* __restrict__ pool_v, const int* __restrict__ table,
-    const int* __restrict__ lens, T* __restrict__ out, int h_kv, int rep,
-    int hd, int block_t, int max_blocks, int n_live_blocks, float sm_scale) {
+    const int* __restrict__ lens, T* __restrict__ out,
+    float* __restrict__ part, int h_kv, int rep, int hd, int block_t,
+    int max_blocks, int n_live_blocks, float sm_scale) {
+  constexpr int N = Piece<T>::N;
   const int head = blockIdx.x;
   const int seq = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_split = gridDim.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int st = block_t < kSubT ? block_t : kSubT;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + (size_t)st * hd;
-  float* q_s = reinterpret_cast<float*>(v_s + (size_t)st * hd);
-  float* acc_s = q_s + rep * hd;
-  float* p_s = acc_s + rep * hd;  // [rep, st]
-  float* m_s = p_s + rep * st;
-  float* l_s = m_s + rep;
-  float* alpha_s = l_s + rep;
-
-  const int len = lens[seq];
   // query row of (seq, head * rep + r) is (seq * h_kv + head) * rep + r
   const int64_t row0 = ((int64_t)seq * h_kv + head) * rep;
-  for (int i = tid; i < rep * hd; i += kThreads) {
-    q_s[i] = to_f(q[row0 * hd + i]);
-    acc_s[i] = 0.f;
+
+  const int len = live_len(lens, seq, n_live_blocks, block_t);
+  const int c0 = split * kChunk;
+  if (c0 >= len) {
+    if (split == 0)                 // a length-0 row gives 0
+      for (int i = tid; i < rep * hd; i += kThreads)
+        out[row0 * hd + i] = from_f<T>(0.f);
+    return;
   }
-  for (int r = tid; r < rep; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+  const int nt = min(kChunk, len - c0);
+  const bool whole = len <= kChunk;  // this CTA covers the whole row
+
+  const int row_bytes = hd * (int)sizeof(T);
+  const int row_stride = row_bytes + kPad;
+  const int pieces = row_bytes / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* k_s = smem;                          // [kChunk][row]
+  unsigned char* v_s = smem + kChunk * row_stride;
+  float* q_s = reinterpret_cast<float*>(smem + 2 * kChunk * row_stride);
+  float* p_s = q_s + rep * hd;                        // [rep, kChunk]
+  float* m_s = p_s + rep * kChunk;
+  float* l_s = m_s + rep;
+
+  // every copy of the chunk goes out now: K as one group, V as another
+  auto issue = [&](const T* pool, unsigned char* dst) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(pool);
+    for (int i = tid; i < nt * pieces; i += kThreads) {
+      const int t = i / pieces;
+      const int c = i - t * pieces;
+      const int tok = c0 + t;
+      const int64_t blk = table[(int64_t)seq * max_blocks + tok / block_t];
+      const int64_t row = (blk * h_kv + head) * block_t + tok % block_t;
+      cp_async16(dst + t * row_stride + c * 16, src + row * row_bytes + c * 16);
+    }
+    cp_async_commit();
+  };
+  issue(pool_k, k_s);
+  issue(pool_v, v_s);
+  for (int i = tid; i < rep * hd; i += kThreads) q_s[i] = to_f(q[row0 * hd + i]);
+  cp_async_wait<1>();               // K has landed
+  __syncthreads();
+
+  // scores s[r, t] = (q_r . k_t) * sm_scale: token t = tid / 4, each of
+  // its 4 lanes a stride of 16-byte pieces, 8 q rows at a time
+  {
+    const int t = tid / kTokLanes;
+    const int g = tid % kTokLanes;
+    const bool live = t < nt;
+    const unsigned char* krow = k_s + t * row_stride;
+    for (int r0 = 0; r0 < rep; r0 += kRowBlock) {
+      float s[kRowBlock];
+#pragma unroll
+      for (int rr = 0; rr < kRowBlock; ++rr) s[rr] = 0.f;
+      if (live) {
+        for (int c = g; c < pieces; c += kTokLanes) {
+          float kv[N];
+          Piece<T>::load(krow + c * 16, kv);
+#pragma unroll
+          for (int rr = 0; rr < kRowBlock; ++rr) {
+            if (r0 + rr < rep) {
+              const float* qr = q_s + (r0 + rr) * hd + c * N;
+#pragma unroll
+              for (int e = 0; e < N; e += 4) {
+                const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+                s[rr] += qv.x * kv[e] + qv.y * kv[e + 1] + qv.z * kv[e + 2] +
+                         qv.w * kv[e + 3];
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRowBlock; ++rr) {
+        if (r0 + rr < rep) {        // the same for every thread
+          float v = s[rr];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (live && g == 0) p_s[(r0 + rr) * kChunk + t] = v * sm_scale;
+        }
+      }
+    }
   }
   __syncthreads();
 
-  const bool vec =
-      ((reinterpret_cast<uintptr_t>(pool_k) |
-        reinterpret_cast<uintptr_t>(pool_v)) % 16 == 0) &&
-      ((size_t)hd * sizeof(T)) % 16 == 0;
-  const int n_blk = min(n_live_blocks, (len + block_t - 1) / block_t);
-  const int64_t tile = (int64_t)block_t * hd;
-
-  for (int j = 0; j < n_blk; ++j) {
-    const int64_t blk = table[(int64_t)seq * max_blocks + j];
-    const T* kb = pool_k + (blk * h_kv + head) * tile;
-    const T* vb = pool_v + (blk * h_kv + head) * tile;
-    const int valid = min(block_t, len - j * block_t);
-    for (int t0 = 0; t0 < valid; t0 += st) {
-      const int nt = min(st, valid - t0);
-      const T* ksrc = kb + (int64_t)t0 * hd;
-      const T* vsrc = vb + (int64_t)t0 * hd;
-      if (vec) {
-        const int n_vec = (int)((size_t)nt * hd * sizeof(T) / 16);
-        const uint4* k4 = reinterpret_cast<const uint4*>(ksrc);
-        const uint4* v4 = reinterpret_cast<const uint4*>(vsrc);
-        uint4* kd = reinterpret_cast<uint4*>(k_s);
-        uint4* vd = reinterpret_cast<uint4*>(v_s);
-        for (int i = tid; i < n_vec; i += kThreads) {
-          kd[i] = k4[i];
-          vd[i] = v4[i];
-        }
-      } else {
-        for (int i = tid; i < nt * hd; i += kThreads) {
-          k_s[i] = ksrc[i];
-          v_s[i] = vsrc[i];
-        }
-      }
-      __syncthreads();
-
-      // scores s[r, t] = (q_r . k_t) * sm_scale, one warp per (r, t)
-      for (int idx = warp; idx < rep * nt; idx += kWarps) {
-        const int r = idx / nt;
-        const int t = idx - r * nt;
-        float s = 0.f;
-        for (int d = lane; d < hd; d += 32)
-          s += q_s[r * hd + d] * to_f(k_s[t * hd + d]);
-        s = warp_sum(s);
-        if (lane == 0) p_s[r * st + t] = s * sm_scale;
-      }
-      __syncthreads();
-
-      // online softmax, one warp per query row
-      for (int r = warp; r < rep; r += kWarps) {
-        float mx = kNegInf;
-        for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, p_s[r * st + t]);
-        mx = warp_max(mx);
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int t = lane; t < nt; t += 32) {
-          const float p = expf(p_s[r * st + t] - m_new);
-          p_s[r * st + t] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          alpha_s[r] = alpha;
-          l_s[r] = l_s[r] * alpha + sum;
-          m_s[r] = m_new;
-        }
-      }
-      __syncthreads();
-
-      // acc[r, d] = acc * alpha + sum_t P[r, t] (in V's dtype) * V[t, d]
-      for (int idx = tid; idx < rep * hd; idx += kThreads) {
-        const int r = idx / hd;
-        const int d = idx - r * hd;
-        const float* pr = p_s + r * st;
-        float a = acc_s[idx] * alpha_s[r];
-        for (int t = 0; t < nt; ++t)
-          a += to_f(from_f<T>(pr[t])) * to_f(v_s[t * hd + d]);
-        acc_s[idx] = a;
-      }
-      __syncthreads();
+  // the chunk's softmax, one warp per query row: its max m and sum l of
+  // exp(s - m); P is rounded to V's dtype for the P.V product after l
+  // has summed it
+  for (int r = warp; r < rep; r += kWarps) {
+    float* pr = p_s + r * kChunk;
+    float mx = kNegInf;
+    for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, pr[t]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < nt; t += 32) {
+      const float p = expf(pr[t] - mx);
+      sum += p;
+      pr[t] = round_to<T>(p);
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[r] = mx;
+      l_s[r] = sum;
     }
   }
+  cp_async_wait<0>();               // V has landed
+  __syncthreads();
 
-  for (int idx = tid; idx < rep * hd; idx += kThreads) {
+  // acc[r, piece] = sum_t P[r, t] V[t, piece]: a group of G lanes (a
+  // power of two, within one warp) per 16-byte piece of the V rows, each
+  // lane every G-th token, 8 q rows at a time; the group sums by shuffles
+  int G = 1;
+  while (2 * G <= 32 && 2 * G * pieces <= kThreads) G *= 2;
+  const int groups = kThreads / G;
+  const int j = tid % G;
+  const unsigned mask = (G == 32 ? 0xffffffffu : ((1u << G) - 1))
+                        << (lane & ~(G - 1));
+  for (int c = tid / G; c < pieces; c += groups) {
+    for (int r0 = 0; r0 < rep; r0 += kRowBlock) {
+      float acc[kRowBlock][N];
+#pragma unroll
+      for (int rr = 0; rr < kRowBlock; ++rr)
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[rr][e] = 0.f;
+      for (int t = j; t < nt; t += G) {
+        float vv[N];
+        Piece<T>::load(v_s + t * row_stride + c * 16, vv);
+#pragma unroll
+        for (int rr = 0; rr < kRowBlock; ++rr) {
+          if (r0 + rr < rep) {
+            const float p = p_s[(r0 + rr) * kChunk + t];
+#pragma unroll
+            for (int e = 0; e < N; ++e) acc[rr][e] += p * vv[e];
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRowBlock; ++rr) {
+        if (r0 + rr >= rep) break;
+        const int r = r0 + rr;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          float x = acc[rr][e];
+          for (int o = G >> 1; o > 0; o >>= 1)
+            x += __shfl_xor_sync(mask, x, o);
+          acc[rr][e] = x;
+        }
+        if (j != 0) continue;
+        if (whole) {
+          T* o = out + (row0 + r) * hd + c * N;
+          const float l = fmaxf(l_s[r], 1e-30f);
+#pragma unroll
+          for (int e = 0; e < N; ++e)
+            o[e] = from_f<T>(__fdividef(acc[rr][e], l));
+        } else {
+          float* o = part + ((row0 + r) * n_split + split) * (hd + 2) + c * N;
+#pragma unroll
+          for (int e = 0; e < N; ++e) o[e] = acc[rr][e];
+        }
+      }
+    }
+  }
+  if (!whole) {
+    for (int r = tid; r < rep; r += kThreads) {
+      float* o = part + ((row0 + r) * n_split + split) * (hd + 2);
+      o[hd] = m_s[r];
+      o[hd + 1] = l_s[r];
+    }
+  }
+}
+
+// grid (h_kv, b): merges each query row's live partials, rescaled to
+// their common maximum; rows that one chunk covers were written by the
+// split kernel
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_decode_merge_kernel(
+    const float* __restrict__ part, const int* __restrict__ lens,
+    T* __restrict__ out, int h_kv, int rep, int hd, int block_t,
+    int n_live_blocks, int n_split) {
+  const int head = blockIdx.x;
+  const int seq = blockIdx.y;
+  const int len = live_len(lens, seq, n_live_blocks, block_t);
+  const int live = (len + kChunk - 1) / kChunk;
+  if (live <= 1) return;
+  const int64_t row0 = ((int64_t)seq * h_kv + head) * rep;
+  const int stride = hd + 2;
+  for (int idx = threadIdx.x; idx < rep * hd; idx += kThreads) {
     const int r = idx / hd;
-    out[row0 * hd + idx] = from_f<T>(acc_s[idx] / fmaxf(l_s[r], 1e-30f));
+    const int d = idx - r * hd;
+    const float* base = part + (row0 + r) * n_split * stride;
+    float m = kNegInf;
+    for (int s = 0; s < live; ++s) m = fmaxf(m, base[s * stride + hd]);
+    float l = 0.f, a = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float* ps = base + s * stride;
+      const float w = expf(ps[hd] - m);
+      l += ps[hd + 1] * w;
+      a += ps[d] * w;
+    }
+    out[(row0 + r) * hd + d] = from_f<T>(__fdividef(a, fmaxf(l, 1e-30f)));
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* pool_k, const void* pool_v,
-           const void* table, const void* lens, void* out, int b, int h,
-           int h_kv, int hd, int block_t, int max_blocks, int n_live_blocks,
-           cudaStream_t stream) {
+           const void* table, const void* lens, void* out, void* part, int b,
+           int h, int h_kv, int hd, int block_t, int max_blocks,
+           int n_live_blocks, int n_split, cudaStream_t stream) {
   const int rep = h / h_kv;
-  const size_t smem = smem_bytes<T>(rep, hd, block_t);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(pool_k) |
+                         reinterpret_cast<uintptr_t>(pool_v)) % 16) == 0;
+  if (!aligned || (hd * sizeof(T)) % 16 != 0 ||
+      n_split != (n_live_blocks * block_t + kChunk - 1) / kChunk ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(rep, hd);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_decode_split_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(h_kv, b);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+  paged_decode_split_kernel<T><<<dim3(h_kv, b, n_split), kThreads, smem,
+                                 stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool_k),
       static_cast<const T*>(pool_v), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<T*>(out), h_kv, rep, hd,
-      block_t, max_blocks, n_live_blocks, 1.0f / sqrtf((float)hd));
+      static_cast<const int*>(lens), static_cast<T*>(out),
+      static_cast<float*>(part), h_kv, rep, hd, block_t, max_blocks,
+      n_live_blocks, 1.0f / sqrtf((float)hd));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  paged_decode_merge_kernel<T><<<dim3(h_kv, b), kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(lens),
+      static_cast<T*>(out), h_kv, rep, hd, block_t, n_live_blocks, n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. `part` is f32 scratch [b, h,
+// n_split, hd + 2], needed when n_split > 1; n_split must be
+// ceil(n_live_blocks * block_t / 64). Returns a cudaError_t (0 =
+// success).
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* pool_k, const void* pool_v,
-    const void* table, const void* lens, void* out, int b, int h, int h_kv,
-    int hd, int block_t, int max_blocks, int n_live_blocks, void* stream) {
+    const void* table, const void* lens, void* out, void* part, int b, int h,
+    int h_kv, int hd, int block_t, int max_blocks, int n_live_blocks,
+    int n_split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, pool_k, pool_v, table, lens, out, b, h, h_kv, hd,
-                         block_t, max_blocks, n_live_blocks, s);
+    return launch<float>(q, pool_k, pool_v, table, lens, out, part, b, h,
+                         h_kv, hd, block_t, max_blocks, n_live_blocks,
+                         n_split, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pool_k, pool_v, table, lens, out, b, h,
-                                 h_kv, hd, block_t, max_blocks,
-                                 n_live_blocks, s);
+    return launch<__nv_bfloat16>(q, pool_k, pool_v, table, lens, out, part,
+                                 b, h, h_kv, hd, block_t, max_blocks,
+                                 n_live_blocks, n_split, s);
   return (int)cudaErrorInvalidValue;
 }
 

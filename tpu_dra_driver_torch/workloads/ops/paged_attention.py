@@ -28,6 +28,16 @@ NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
+# tokens of a row's live range per CTA of the kernel's split (kChunk in
+# csrc/paged_attention.cu)
+_CHUNK = 64
+
+
+def _n_split(n_live_blocks: int, block_t: int) -> int:
+    """CTAs per (sequence, KV head) of the kernel: the chunks of
+    ``_CHUNK`` tokens that cover ``n_live_blocks`` blocks. Host integers
+    only, so a launch never waits for the card."""
+    return -(-n_live_blocks * block_t // _CHUNK)
 
 
 def init_pool(n_blocks: int, block_t: int, h_kv: int, hd: int,
@@ -177,7 +187,8 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     CPU tensors run :func:`paged_decode_attention_plain`. CUDA tensors
     launch the kernel of ``csrc/paged_attention.cu`` (built at first
     use) and must be contiguous, on one device, q and pools both bf16
-    or both f32, table and lens int32; anything else raises."""
+    or both f32 with rows of a multiple of 16 bytes, table and lens
+    int32; anything else raises."""
     tensors = (q, pool_k, pool_v, table, lens)
     if all(t.device.type == "cpu" for t in tensors):
         return paged_decode_attention_plain(q, pool_k, pool_v, table, lens,
@@ -200,24 +211,33 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     # The kernel replaces the Pallas `_paged_kernel` of
     # tpu_dra_driver/workloads/ops/paged_attention.py. Its bound on the
     # H100 is bytes: each sequence's live K and V, read once, over
-    # 3.35 TB/s (about one operation per byte). It keeps each GQA group
-    # in one CTA per (KV head, sequence) so every K/V tile is read once,
-    # and reads only live slots; see csrc/paged_attention.cu.
+    # 3.35 TB/s (about one operation per byte). Each row's live range is
+    # split into chunks of _CHUNK tokens, one CTA each (its GQA group
+    # together, so every K/V byte is read once, and only live slots),
+    # and a second kernel merges the chunks' partial softmax states into
+    # ``part``; see csrc/paged_attention.cu.
     b, h, _, hd = q.shape
     n_blocks, h_kv, block_t, _ = pool_k.shape
-    if hd > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} > {_MAX_HEAD_DIM}")
+    if hd > _MAX_HEAD_DIM or hd * q.element_size() % 16:
+        raise ValueError(f"kernel takes head dims of a multiple of 16 bytes "
+                         f"up to {_MAX_HEAD_DIM}; got {hd} in {q.dtype}")
     out = torch.empty_like(q)
     if b == 0:
         return out
+    n_split = _n_split(n_live_blocks, block_t)
+    part = None
+    if n_split > 1:
+        part = torch.empty((b, h, n_split, hd + 2), dtype=torch.float32,
+                           device=q.device)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_decode_attention_launch(
             _KERNEL_DTYPES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr(), table.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, h, h_kv, hd, block_t, table.shape[1],
-            n_live_blocks, stream)
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            b, h, h_kv, hd, block_t, table.shape[1], n_live_blocks,
+            n_split, stream)
     if rc != 0:
         raise RuntimeError(
             "paged_decode_attention kernel launch failed: "
@@ -235,7 +255,7 @@ def _kernel_library() -> ctypes.CDLL:
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         err = lib.paged_attention_error_string
         err.argtypes = [i]
