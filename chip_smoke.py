@@ -24,7 +24,13 @@ run when it fails:
    generation shapes (q [8, 16, 1, 128], cache [8, 4, 3200, 128]) in
    bf16 and int8 row by row against an f32 reference, with a 64-slot
    sub-tile left out shown to break that allowance, in f32 at the first,
-   a middle and the last slot, and on a wrapped ring (timed likewise);
+   a middle and the last slot, on a wrapped ring, and with one KV head
+   (MQA); every read also with its position on the device, launched
+   under sync-debug mode and bit-identical to the int position; NaN in
+   the slots (and scales) past pos leaving the output unchanged; one
+   CUDA graph of B5 replayed at five positions, each equal to the eager
+   call (timed likewise, then its split and merge kernels and SDPA under
+   ``torch.profiler``);
 6. engine parity: the ``ServingTraffic`` configuration in fp32 through
    the engine on the card and on the CPU, same weights and prompts;
 7. serving: the full-width serving configuration (vocab 8192, d_model
@@ -155,6 +161,16 @@ DECODE_INT8_POS = (2048,)
 DECODE_F32_POS = (0, 1600, 3199)
 # a ring of 256 slots read at position 1000 (wrapped: every slot visible)
 DECODE_RING = (256, 1000)
+# one KV head for the 16 query heads (MQA), bf16, at DECODE_BF16_POS[0]
+DECODE_MQA = (8, 16, 1, 3200, 128)
+# B5 captured once in a CUDA graph with its position on the device, then
+# replayed at these positions (the first slot, a tile less one and a
+# tile, the full-width read, the last slot)
+DECODE_GRAPH_POS = (0, 63, 64, 2048, 3199)
+# slots past these positions (and their scales) are filled with NaN: the
+# output must not move (inside the first tile, the full-width read, two
+# slots into a tile)
+DECODE_NAN_POS = (63, 2048, 2050)
 # the sub-tile (slots) whose omission from the middle of the live range
 # the bf16 and int8 allowances must see in every row
 DECODE_MUTANT_TILE = 64
@@ -944,12 +960,20 @@ def _decode_check(label, q, k, v, ks, vs, pos) -> float:
     against an f32 reference, with a sub-tile of the middle of the live
     range left out shown to break the allowance in every row."""
     got = da.flash_decode_attention(q, k, v, pos, ks, vs)
+    # the same read with the position on the device, launched where any
+    # host wait raises: one partition, so the same bits
+    pos_dev = torch.tensor([pos], dtype=torch.int32, device=DEV)
+    with no_device_waits():
+        got_dev = da.flash_decode_attention(q, k, v, pos_dev, ks, vs)
     plain = da.flash_decode_attention_plain(q, k, v, pos, ks, vs)
     torch.cuda.synchronize()
+    if not torch.equal(got, got_dev):
+        raise AssertionError(f"B5 with a device pos differs from the int "
+                             f"pos: {label} pos {pos}")
     err = (got.float() - plain.float()).abs().max().item()
     if q.dtype == torch.float32:
         print(f"  {label} pos {pos}: max |kernel - plain| {err:.3e} "
-              f"(tolerance {TOL_F32:.0e})")
+              f"(tolerance {TOL_F32:.0e}); device pos bit-identical")
         if not err <= TOL_F32:
             raise AssertionError(f"B5 disagrees with its plain version: "
                                  f"{label} pos {pos}, {err}")
@@ -978,7 +1002,8 @@ def _decode_check(label, q, k, v, ks, vs, pos) -> float:
         pos - DECODE_MUTANT_TILE,
         *(None if x is None else without(x, 2) for x in args32[3:]))
     seen = (_row_err(mutant, ref) / _allowance(plain, ref)).flatten()
-    print(f"  {label} pos {pos}: max |kernel - plain| {err:.3e}; worst row "
+    print(f"  {label} pos {pos}: device pos bit-identical; max |kernel - "
+          f"plain| {err:.3e}; worst row "
           f"vs f32 {reading['kernel']:.3e} (plain {reading['plain']:.3e}); "
           f"over allowance {reading['over']:.3f}; slots {t0}-{cut.stop - 1} "
           f"left out: least {seen.min().item():.1f}, median "
@@ -990,6 +1015,112 @@ def _decode_check(label, q, k, v, ks, vs, pos) -> float:
         raise AssertionError(f"the {label} allowance would not see a "
                              f"sub-tile left out: {seen.min().item()}")
     return err
+
+
+def _decode_nan_check(gen) -> None:
+    """Slots past pos, and their scales, filled with NaN on the card must
+    leave B5's output unchanged: they are excluded by select."""
+    for int8 in (False, True):
+        q, k, v, ks, vs = _decode_inputs(DECODE_FULL, torch.bfloat16, gen,
+                                         int8=int8)
+        for pos in DECODE_NAN_POS:
+            want = da.flash_decode_attention(q, k, v, pos, ks, vs)
+            if int8:
+                ks2, vs2 = ks.clone(), vs.clone()
+                ks2[:, :, pos + 1:] = float("nan")
+                vs2[:, :, pos + 1:] = float("nan")
+                got = da.flash_decode_attention(q, k, v, pos, ks2, vs2)
+            else:
+                k2, v2 = k.clone(), v.clone()
+                k2[:, :, pos + 1:] = float("nan")
+                v2[:, :, pos + 1:] = float("nan")
+                got = da.flash_decode_attention(q, k2, v2, pos)
+            if not torch.equal(got, want):
+                raise AssertionError(f"NaN past pos {pos} moved B5's output "
+                                     f"(int8 {int8})")
+    print(f"  NaN in the slots past pos {DECODE_NAN_POS} (bf16 K/V; int8 "
+          f"scales): outputs unchanged")
+
+
+def _decode_graph_check(gen) -> None:
+    """B5 with its position on the device, captured once in a CUDA graph
+    and replayed after ``pos.fill_(p)``: each replay equals the eager
+    call with the int position."""
+    q, k, v, _, _ = _decode_inputs(DECODE_FULL, torch.bfloat16, gen)
+    pos = torch.zeros((), dtype=torch.int32, device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.flash_decode_attention(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.flash_decode_attention(q, k, v, pos)
+    for p in DECODE_GRAPH_POS:
+        pos.fill_(p)
+        graph.replay()
+        eager = da.flash_decode_attention(q, k, v, p)
+        if not torch.equal(out, eager):
+            raise AssertionError(f"B5's graph replay at pos {p} differs "
+                                 f"from the eager call")
+    print(f"  one CUDA graph, replayed at pos {DECODE_GRAPH_POS}: each "
+          f"replay equal to the eager call")
+
+
+def _decode_profile(gen, flush, pos, iters: int = 20) -> None:
+    """B5's split and merge kernels (bf16 and int8 caches) and SDPA over
+    the live slots on one clock: mean device ms per launch of each
+    kernel in one ``torch.profiler`` session, each call after a flush of
+    the L2, after every event reading of the phase. A kernel the
+    profiler recorded no time for is reported as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _, _ = _decode_inputs(DECODE_FULL, torch.bfloat16, gen)
+    q8, k8, v8, ks, vs = _decode_inputs(DECODE_FULL, torch.bfloat16, gen,
+                                        int8=True)
+    kl, vl = k[:, :, :pos + 1], v[:, :, :pos + 1]
+    calls = (lambda: da.flash_decode_attention(q, k, v, pos),
+             lambda: da.flash_decode_attention(q8, k8, v8, pos, ks, vs),
+             lambda: F.scaled_dot_product_attention(q, kl, vl,
+                                                    enable_gqa=True))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for fn in calls:
+                flush.zero_()
+                fn()
+        torch.cuda.synchronize()
+    ms, sdpa = {}, {}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if e.device_type != DeviceType.CUDA or not e.count \
+                or "zero" in low or "fill" in low:
+            continue
+        mean = e.self_device_time_total / 1e3 / e.count
+        if "flash_decode_split" in low:
+            ms["int8 split" if "signed char" in low else "bf16 split"] = mean
+        elif "flash_decode_merge" in low:
+            ms["merge"] = mean
+        else:
+            sdpa[e.key[:40]] = mean
+
+    def show(key):
+        return f"{ms[key]:.4f} ms" if key in ms else "not measured"
+
+    merge = show("merge")
+    for label in ("bf16", "int8"):
+        split = ms.get(f"{label} split")
+        total = (f" = {split + ms['merge']:.4f} ms"
+                 if split is not None and "merge" in ms else "")
+        print(f"B5 {label} at pos {pos} by the profiler: split "
+              f"{show(f'{label} split')} + merge {merge}{total}")
+    print("SDPA over the live slots by the profiler: "
+          + (f"{sum(sdpa.values()):.4f} ms ("
+             + ", ".join(f"{k} {v:.4f}" for k, v in sdpa.items()) + ")"
+             if sdpa else "not measured"))
 
 
 def decode_kernel_phase(gen) -> dict:
@@ -1012,8 +1143,12 @@ def decode_kernel_phase(gen) -> dict:
                   ring_pos)
     errs.append(_decode_check("ring bf16", *_decode_inputs(
         ring, torch.bfloat16, gen), ring_pos))
+    errs.append(_decode_check("MQA bf16 (h_kv 1, rep 16)", *_decode_inputs(
+        DECODE_MQA, torch.bfloat16, gen), DECODE_BF16_POS[0]))
     del f32
     torch.cuda.empty_cache()
+    _decode_nan_check(gen)
+    _decode_graph_check(gen)
 
     # timings with a cold L2 at pos 2048, bounds and the library yardstick
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
@@ -1052,6 +1187,7 @@ def decode_kernel_phase(gen) -> dict:
                       "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations"}
+    _decode_profile(gen, flush, pos)
     del flush
     torch.cuda.empty_cache()
     return {"max_abs_err": max(errs), **out["bf16"]}
@@ -1349,7 +1485,7 @@ SERVING_KERNEL_GROUPS = (
 )
 # ... and of a decode step
 DECODE_KERNEL_GROUPS = (
-    ("flash decode (B5)", ("decode_kernel", "combine_kernel")),
+    ("flash decode (B5)", ("flash_decode_split", "flash_decode_merge")),
     ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
 )
 

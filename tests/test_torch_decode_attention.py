@@ -146,3 +146,154 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA device"):
         td.flash_decode_attention(q, k.to("meta"), v, 3)
     assert td.flash_decode_attention.launches == 0
+
+
+# ``pos`` as a tensor: the reference takes ``atleast_1d(pos)`` of an
+# int32 array; the port takes an int32 tensor of shape [] or [1]
+@pytest.mark.parametrize("shape", [(), (1,)])
+@pytest.mark.parametrize("name", ["gqa4_pos_mid", "gqa4_int8_scales",
+                                  "ring_wrapped"])
+def test_pos_tensor_matches_int_and_pallas_kernel(name, shape):
+    b, h, h_kv, L, hd, pos, int8 = CASES[name]
+    arrays = _inputs(b, h, h_kv, L, hd, int8)
+    q, k, v, ks, vs = _torch(*arrays)
+    want = td.flash_decode_attention(q, k, v, pos, ks, vs)
+    pos_t = torch.full(shape, pos, dtype=torch.int32)
+    got = td.flash_decode_attention(q, k, v, pos_t, ks, vs)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    jq, jk, jv, jks, jvs = _jax(*arrays)
+    kernel = jd.flash_decode_attention(jq, jk, jv,
+                                       jnp.full(shape, pos, jnp.int32),
+                                       jks, jvs, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), **TOL)
+
+
+@pytest.mark.parametrize("bad", [
+    torch.tensor([3, 4], dtype=torch.int32),      # two positions
+    torch.tensor([[3]], dtype=torch.int32),       # [1, 1]
+    torch.tensor(3, dtype=torch.int64),           # not int32
+    torch.tensor(-1, dtype=torch.int32),          # a CPU pos is checked
+])
+def test_bad_pos_tensor_raises(bad):
+    q, k, v, _, _ = _torch(*_inputs(1, 4, 2, 128, 16, False))
+    with pytest.raises(ValueError, match="pos"):
+        td.flash_decode_attention(q, k, v, bad)
+
+
+def test_cpu_inputs_refuse_a_pos_on_another_device():
+    q, k, v, _, _ = _torch(*_inputs(1, 4, 2, 128, 16, False))
+    with pytest.raises(ValueError, match="CUDA device"):
+        td.flash_decode_attention(q, k, v,
+                                  torch.tensor(3, dtype=torch.int32,
+                                               device="meta"))
+    assert td.flash_decode_attention.launches == 0
+
+
+# The kernel's grid: splits from L, b * h_kv and the SM count only
+@pytest.mark.parametrize("L,bh,n_sm,want", [
+    (3200, 32, 132, 8),       # the full-width read: 256 CTAs
+    (3200, 512, 132, 1),      # a wide batch: one split, no merge
+    (128, 1, 132, 2),         # at most one split per 64-slot tile
+    (256, 8, 132, 4),
+    (32768, 1, 132, 264),
+])
+def test_decode_n_split(L, bh, n_sm, want):
+    assert td.decode_n_split(L, bh, n_sm) == want
+
+
+def _live_slots(L, pos):
+    return min(pos + 1, L)
+
+
+# (L, n_split): the full-width read, a split count that does not divide
+# the tiles, one split per tile, one split, and a ring
+PARTITIONS = [(3200, 8), (640, 3), (256, 4), (384, 1), (256, 7)]
+
+
+@pytest.mark.parametrize("L,n_split", PARTITIONS)
+def test_partition_covers_each_live_slot_once(L, n_split):
+    # every position of the cache, and positions past a wrapped ring
+    for pos in list(range(L)) + [L, L + 37, 5 * L + 1]:
+        n_live = _live_slots(L, pos)
+        ranges = td.decode_partition(L, n_live, n_split)
+        assert len(ranges) == n_split
+        seen = np.zeros(L, dtype=int)
+        for start, end in ranges:
+            assert 0 <= start <= end <= n_live
+            seen[start:end] += 1
+            if start < end:
+                # whole 64-slot tiles, only the live range's last short
+                assert start % 64 == 0
+                assert end % 64 == 0 or end == n_live
+        assert (seen[:n_live] == 1).all() and (seen[n_live:] == 0).all()
+        # balanced: split sizes in tiles differ by at most one
+        tiles = [-(-(e - s) // 64) for s, e in ranges]
+        assert max(tiles) - min(tiles) <= 1
+
+
+def _split_then_merge(q, k, v, pos, n_split, ks=None, vs=None):
+    """A plain model of the kernel's two passes in f32: each split's
+    partial (m, l, acc) over its slots of ``decode_partition`` with the
+    reference's numerics, an empty split (m, l, acc) = (NEG_INF, 0, 0),
+    then the merge kernel's arithmetic: m = max m_s, w_s = exp(m_s - m),
+    out = sum w_s acc_s / max(sum w_s l_s, 1e-30)."""
+    b, h, _, hd = q.shape
+    h_kv, L = k.shape[1], k.shape[2]
+    rep = h // h_kv
+    qg = q.reshape(b, h_kv, rep, hd).double()
+    parts = []
+    for start, end in td.decode_partition(L, min(pos + 1, L), n_split):
+        if start == end:
+            parts.append((torch.full((b, h_kv, rep, 1), td.NEG_INF,
+                                     dtype=torch.float64),
+                          torch.zeros((b, h_kv, rep, 1), dtype=torch.float64),
+                          torch.zeros((b, h_kv, rep, hd),
+                                      dtype=torch.float64)))
+            continue
+        s = torch.einsum("bkrd,bktd->bkrt", qg, k[:, :, start:end].double())
+        if ks is not None:
+            s = s * ks[:, :, None, start:end].double()
+        s = s * (1.0 / np.sqrt(hd))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[:, :, None, start:end].double()
+        acc = torch.einsum("bkrt,bktd->bkrd", p, v[:, :, start:end].double())
+        parts.append((m, l, acc))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    w = [torch.exp(p[0] - m) for p in parts]
+    l = sum(wi * p[1] for wi, p in zip(w, parts))
+    acc = sum(wi * p[2] for wi, p in zip(w, parts))
+    return (acc / l.clamp_min(1e-30)).float().reshape(b, h, 1, hd)
+
+
+# (name, L, pos, n_split, int8): the first slot, a tile less one, one
+# tile, a tile and a slot, the last slot, and a wrapped ring; three
+# splits leave most of them empty at short positions
+MERGE_CASES = [
+    ("pos0", 640, 0, 3, False),
+    ("pos63", 640, 63, 3, False),
+    ("pos64", 640, 64, 3, False),
+    ("pos65", 640, 65, 3, False),
+    ("pos_last", 640, 639, 3, False),
+    ("pos_last_int8", 640, 639, 4, True),
+    ("ring_wrapped", 256, 1000, 4, False),
+    ("one_split_per_tile", 256, 200, 4, False),
+]
+
+
+@pytest.mark.parametrize("name,L,pos,n_split,int8", MERGE_CASES,
+                         ids=[c[0] for c in MERGE_CASES])
+def test_split_then_merge_matches_pallas_kernel(name, L, pos, n_split, int8):
+    b, h, h_kv, hd = 2, 8, 2, 64
+    arrays = _inputs(b, h, h_kv, L, hd, int8, seed=3)
+    q, k, v, ks, vs = _torch(*arrays)
+    got = _split_then_merge(q, k, v, pos, n_split, ks, vs)
+    jq, jk, jv, jks, jvs = _jax(*arrays)
+    kernel = jd.flash_decode_attention(jq, jk, jv, jnp.int32(pos), jks, jvs,
+                                       interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), td.flash_decode_attention(q, k, v, pos, ks, vs).numpy(),
+        **TOL)

@@ -8,7 +8,10 @@
 //   q       [b, h, 1, hd]        bf16 or f32
 //   k, v    [b, h_kv, L, hd]     q's dtype, or int8 codes
 //   ks, vs  [b, h_kv, L]         f32 per-slot scales (int8 caches only)
+//   pos     a host int, or an int32 on the device that the kernel reads
 //   out     [b, h, 1, hd]        q's dtype
+//   part    [b * h_kv, n_split, rep, hd + 2]  f32 scratch: each split's
+//                                partial acc, m and l (n_split > 1)
 //
 // Semantics follow the TPU kernel: scores accumulate in f32 with K in
 // q's dtype (int8 codes widen exactly), the per-slot K scale multiplies
@@ -20,24 +23,53 @@
 //
 // Bound on this card: bytes. Each live K and V row (and its scales) is
 // read once, n_live * h_kv * hd * (2 * sizeof(cache) + 8 / hd) bytes per
-// sequence, against 4 * h * hd flops per slot: about one operation per
-// byte, far below the H100's ~295 operations per byte of bf16 tensor
-// work, so the least time is those bytes over 3.35 TB/s.
+// sequence, against 4 * rep * hd operations per slot and KV head: about
+// one operation per byte, far below the H100's ~295 operations per byte
+// of bf16 tensor work. So the design is about bytes in flight and few
+// instructions per byte: on the H100 the FMA kernel below, given the
+// full-width bf16 read, is paced by its inner loop (an int8 cache no
+// faster than bf16), so bf16 queries take the tensor cores, though a
+// fragment wastes half of them on absent query rows.
 //
-// Design. The TPU walked the cache as a sequential grid axis; here the
-// live slots of each (sequence, KV head) are split into contiguous runs
-// of 64-slot sub-tiles, one CTA per run, so that even a batch of 8 with
-// 4 KV heads puts a few hundred CTAs on the 132 SMs (flash-decoding).
-// Each CTA keeps its GQA group's `rep` query rows together, so every
-// K/V byte is read from device memory once, and streams its sub-tiles
-// into shared memory with cp.async, double-buffered so the next
-// sub-tile's loads are in flight while this one is computed. Scores are
-// one thread per (query row, slot), read in 16-byte chunks from rows
-// padded by 16 bytes (no bank conflicts); the online softmax is one warp
-// per query row, in f32. Each CTA writes its (m, l, acc) partial state;
-// a second kernel merges a row's partials with the usual rescaling
-// (when one CTA covers the whole range it writes the output itself).
-// Not here yet: wgmma for the products, TMA, and an L2-aware split.
+// Design.
+// - Grid (n_split, h_kv, b * n_pass) from L, b * h_kv and the SM count
+//   only, never from pos (about two CTAs per SM), so a launch can be
+//   captured in a CUDA graph and replayed at any position. Each CTA
+//   reads pos itself (from the device when `pos_dev` is given), takes
+//   n_live = min(pos + 1, L), and covers a balanced run of whole 64-slot
+//   tiles of the live range (`split_tiles`, the partition that
+//   `decode_partition` in ops/decode_attention.py mirrors). A CTA whose
+//   run is empty writes the neutral state (m = -1e30, l = 0, acc = 0).
+// - One producer thread streams its run's K and V tiles (and their
+//   scales) with 1-D bulk asynchronous copies into a ring of 1-4 stages
+//   in shared memory, guarded by mbarriers; a run of slots of one (seq,
+//   KV head) is contiguous, so a tile is one copy and no thread does
+//   address arithmetic. A wait of over a second traps.
+// - Four consumer warps share each tile, 16 slots a warp (a round),
+//   with q, the online softmax state (m, l) and acc in registers for the
+//   whole walk; the only block-wide barriers per tile are the ring
+//   slot's mbarriers. Rows of larger GQA groups are split over the
+//   warps and, past 4 warps' worth, over passes of the grid's z axis.
+// - bf16 queries (head dims up to 128, the generation path) take the
+//   tensor-core kernel: mma.sync m16n8k16 with the GQA group on the
+//   narrow side, S^T = K Q^T and O^T += V^T P^T (see its note). A
+//   fragment's two slots of one head dim come from two rows 256 bytes
+//   apart, which the unpadded ring puts in the same banks: those loads
+//   conflict four ways, which the ring's traffic affords.
+// - f32 queries and wider heads take the FMA kernel: each lane owns one
+//   16-byte piece of a cache row, LPS lanes a slot, so a warp reads
+//   whole rows without bank conflicts; scores reduce by shuffles inside
+//   a slot's lanes, which then all hold P for P.V. Exact in f32, as the
+//   f32 tolerance needs (a tf32 or bf16 product would not be).
+// - Slots past the run's end are excluded by select, never multiplied
+//   by 0: a NaN in a stale ring slot or past pos cannot reach a sum.
+// - At the end the warps of a CTA merge their (m, l, acc) once through
+//   shared memory. A second kernel merges a row's splits: one warp per
+//   query row, the splits' states loaded in groups of 8 and folded in
+//   by the online rescaling, each weight exp(m_s - m) taken once per
+//   split (an empty split weighs exp(-1e30 - m) = 0). It reads no
+//   counters, so a graph can replay it. With one split the split kernel
+//   writes the output itself and no merge is launched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,12 +78,20 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSubT = 64;       // slots of K and V staged per step
-constexpr int kPad = 16;        // bytes of padding per staged row
+constexpr int kConsumerWarps = 4;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;      // + the producer warp
+constexpr int kTile = 64;                      // slots per ring stage
+constexpr int kRound = 16;                     // slots per softmax round
+constexpr int kMaxStages = 4;
+// ring bytes aimed for: two CTAs of the FMA kernel share an SM, three
+// of the tensor-core kernel
+constexpr size_t kFmaRingBytes = 100 * 1024;
+constexpr size_t kMmaRingBytes = 70 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr float kNegInf = -1e30f;
+constexpr int kMergeWarps = 4;
+constexpr int kMaxDevices = 64;   // per-device flags of the launch code
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
@@ -60,9 +100,6 @@ template <> __device__ __forceinline__ float to_f<float>(float x) {
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
     __nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
-  return (float)x;
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -79,9 +116,9 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
 }
 
-// one 16-byte chunk of a cache row, widened to f32
-template <typename T> struct Chunk;
-template <> struct Chunk<float> {
+// one 16-byte piece of a cache row in shared memory, widened to f32
+template <typename T> struct Piece;
+template <> struct Piece<float> {
   static constexpr int N = 4;
   __device__ __forceinline__ static void load(const unsigned char* p,
                                               float* o) {
@@ -89,7 +126,7 @@ template <> struct Chunk<float> {
     o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
   }
 };
-template <> struct Chunk<__nv_bfloat16> {
+template <> struct Piece<__nv_bfloat16> {
   static constexpr int N = 8;
   __device__ __forceinline__ static void load(const unsigned char* p,
                                               float* o) {
@@ -103,327 +140,980 @@ template <> struct Chunk<__nv_bfloat16> {
     }
   }
 };
-template <> struct Chunk<int8_t> {
+template <> struct Piece<int8_t> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void load(const unsigned char* p,
                                               float* o) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) o[i] = (float)c[i];
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xffu);
   }
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// one arrival that also announces `bytes` of bulk-copy traffic
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait of over a second traps, so a broken pipeline fails the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t since = 0;
+  for (uint32_t tries = 1; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && tries % 4096 == 0) {
+      if (since == 0) since = global_ns();
+      else if (global_ns() - since > 1000000000ull) __trap();
+    }
+  }
 }
 
-size_t smem_bytes(int stages, int rep, int hd, int row_stride) {
-  return 2 * (size_t)stages * kSubT * row_stride      // K and V sub-tiles
-         + (2 * (size_t)rep * hd                      // q rows, accumulator
-            + (size_t)rep * kSubT                     // scores / probs
-            + 2 * (size_t)stages * kSubT              // K and V scales
-            + 3 * (size_t)rep) * sizeof(float);       // m, l, alpha
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// grid (n_split, h_kv, b): CTA (s, head, seq) covers sub-tiles
-// [s * tiles_per_split, (s + 1) * tiles_per_split) of the live slots.
-template <typename TQ, typename TC>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const TQ* __restrict__ q, const TC* __restrict__ k,
-    const TC* __restrict__ v, const float* __restrict__ ks,
-    const float* __restrict__ vs, TQ* __restrict__ out,
-    float* __restrict__ part, int h_kv, int rep, int hd, int L, int n_live,
-    int tiles_per_split, int stages, float sm_scale) {
-  const int split = blockIdx.x;
-  const int n_split = gridDim.x;
-  const int64_t bh = (int64_t)blockIdx.z * h_kv + blockIdx.y;
+// the consumer warps only (the producer warp may have left)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// The live tiles [*t0, *t1) of split `split` of `n_split`: the
+// ceil(n_live / 64) tiles of the live range dealt out in balanced runs.
+__host__ __device__ __forceinline__ void split_tiles(int n_live, int split,
+                                                     int n_split, int* t0,
+                                                     int* t1) {
+  const int n_tiles = n_live > 0 ? (n_live + kTile - 1) / kTile : 0;
+  *t0 = (int)((int64_t)split * n_tiles / n_split);
+  *t1 = (int)((int64_t)(split + 1) * n_tiles / n_split);
+}
+
+// the arguments of a split kernel's launch
+struct Args {
+  const void* q;          // [b, h, 1, hd] TQ
+  const void* k;          // [b, h_kv, L, hd] TC
+  const void* v;
+  const float* ks;        // [b, h_kv, L], or null (cache in q's dtype)
+  const float* vs;
+  const int* pos_dev;     // the position on the device, or null
+  void* out;              // [b, h, 1, hd] TQ
+  float* part;            // [b * h_kv, n_split, rep, hd + 2]
+  int h_kv, rep, hd, L, pos_host, n_pass, stages;
+  float sm_scale;
+};
+
+// What one CTA of a split kernel covers: (seq, KV head) `bh`, split
+// `split` of `n_split`, its live tiles [tile0, tile1) ending at slot
+// `slot_end`, and query rows [row0, row0 + rows) of the GQA group held
+// by RG row groups of RB rows, each walked by SG warps (RG * SG = 4).
+struct Work {
+  int64_t bh;
+  int split, n_split, tile0, tile1, slot_end, row0, rows, rg_n, sg_n;
+};
+
+__device__ __forceinline__ Work plan(const Args& a, int rb) {
+  Work w;
+  w.split = blockIdx.x;
+  w.n_split = gridDim.x;
+  const int seq = blockIdx.z / a.n_pass;
+  const int pass = blockIdx.z - seq * a.n_pass;
+  w.bh = (int64_t)seq * a.h_kv + blockIdx.y;
+  const int pos = a.pos_dev != nullptr ? *a.pos_dev : a.pos_host;
+  const int n_live = pos < a.L ? pos + 1 : a.L;  // no overflow at INT_MAX
+  split_tiles(n_live, w.split, w.n_split, &w.tile0, &w.tile1);
+  w.slot_end = min(w.tile1 * kTile, n_live);
+  w.row0 = pass * kConsumerWarps * rb;
+  w.rows = min(kConsumerWarps * rb, a.rep - w.row0);
+  const int need = (w.rows + rb - 1) / rb;
+  w.rg_n = need <= 1 ? 1 : (need <= 2 ? 2 : 4);
+  w.sg_n = kConsumerWarps / w.rg_n;
+  return w;
+}
+
+// An empty run: the neutral partial state (m = -1e30, l = 0, acc = 0);
+// with one split (a device pos below 0: no slot visible) the output 0.
+template <typename TQ>
+__device__ void write_empty(const Args& a, const Work& w) {
+  const int stride = a.hd + 2;
+  if (w.n_split == 1) {
+    TQ* out = static_cast<TQ*>(a.out) + (w.bh * a.rep + w.row0) * a.hd;
+    for (int i = threadIdx.x; i < w.rows * a.hd; i += kThreads)
+      out[i] = from_f<TQ>(0.f);
+    return;
+  }
+  float* dst =
+      a.part + ((w.bh * w.n_split + w.split) * a.rep + w.row0) * stride;
+  for (int i = threadIdx.x; i < w.rows * stride; i += kThreads)
+    dst[i] = i % stride == a.hd ? kNegInf : 0.f;
+}
+
+// The producer thread: each tile of the run as one bulk copy of its K
+// rows and one of its V rows (and one each of their scales) into ring
+// stage it % stages, once the consumers have released that stage.
+template <typename TC>
+__device__ void produce(const Args& a, const Work& w, unsigned char* ring,
+                        float* scales, uint32_t bar_full,
+                        uint32_t bar_empty) {
+  const bool quantized = a.ks != nullptr;
+  const int row_bytes = a.hd * (int)sizeof(TC);
+  const int tile_bytes = kTile * row_bytes;
+  const unsigned char* kb =
+      static_cast<const unsigned char*>(a.k) + w.bh * a.L * row_bytes;
+  const unsigned char* vb =
+      static_cast<const unsigned char*>(a.v) + w.bh * a.L * row_bytes;
+  for (int it = 0; it < w.tile1 - w.tile0; ++it) {
+    const int s = it % a.stages;
+    if (it >= a.stages)
+      mbar_wait(bar_empty + 8 * s, ((it / a.stages) - 1) & 1);
+    const int t0 = (w.tile0 + it) * kTile;
+    const int nrows = min(kTile, w.slot_end - t0);
+    const uint32_t kv_bytes = (uint32_t)(nrows * row_bytes);
+    // the scales' run rounded up to 4 slots (16 bytes): it stays inside
+    // L, a multiple of 128; slots past the run are selected out by the
+    // consumers
+    const uint32_t sc_bytes =
+        quantized ? (uint32_t)(((nrows + 3) & ~3) * sizeof(float)) : 0;
+    const uint32_t bar = bar_full + 8 * s;
+    mbar_expect(bar, 2 * kv_bytes + 2 * sc_bytes);
+    unsigned char* dst = ring + (size_t)s * 2 * tile_bytes;
+    bulk_load(smem_addr(dst), kb + (int64_t)t0 * row_bytes, kv_bytes, bar);
+    bulk_load(smem_addr(dst + tile_bytes), vb + (int64_t)t0 * row_bytes,
+              kv_bytes, bar);
+    if (quantized) {
+      float* sd = scales + s * 2 * kTile;
+      bulk_load(smem_addr(sd), a.ks + w.bh * a.L + t0, sc_bytes, bar);
+      bulk_load(smem_addr(sd + kTile), a.vs + w.bh * a.L + t0, sc_bytes,
+                bar);
+    }
+  }
+}
+
+// The warps of each row group merge their (m, l, acc), written to `mrg`
+// as [warp][rb][hd + 2], rescaled to their common max: into `out` with
+// one split, else into the split's partial state.
+template <typename TQ>
+__device__ void merge_warps(const Args& a, const Work& w, const float* mrg,
+                            int rb) {
+  const int hd = a.hd;
+  const int stride = hd + 2;
+  for (int i = threadIdx.x; i < w.rows * hd; i += kConsumers) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    const int g = r / rb;
+    const float* base = mrg + (g * w.sg_n * rb + r - g * rb) * stride;
+    float mm = kNegInf;
+    for (int x = 0; x < w.sg_n; ++x)
+      mm = fmaxf(mm, base[x * rb * stride + hd]);
+    float acc = 0.f, l = 0.f;
+    for (int x = 0; x < w.sg_n; ++x) {
+      const float* ps = base + x * rb * stride;
+      const float wt = expf(ps[hd] - mm);
+      acc += ps[d] * wt;
+      l += ps[hd + 1] * wt;
+    }
+    const int64_t row = w.bh * a.rep + w.row0 + r;
+    if (w.n_split == 1) {
+      static_cast<TQ*>(a.out)[row * hd + d] =
+          from_f<TQ>(__fdividef(acc, fmaxf(l, 1e-30f)));
+    } else {
+      float* dst =
+          a.part + ((w.bh * w.n_split + w.split) * a.rep + w.row0 + r) *
+                       stride;
+      dst[d] = acc;
+      if (d == 0) {
+        dst[hd] = mm;
+        dst[hd + 1] = l;
+      }
+    }
+  }
+}
+
+// the ring's stage bytes: K and V tiles, and their scales
+template <typename TC>
+size_t stage_bytes(int hd, bool quantized) {
+  return 2 * (size_t)kTile * hd * sizeof(TC) +
+         (quantized ? 2 * (size_t)kTile * sizeof(float) : 0);
+}
+
+// the warps' (m, l, acc) for the merge inside the CTA
+__host__ __device__ size_t merge_bytes(int rb, int hd) {
+  return (size_t)kConsumerWarps * rb * (hd + 2) * sizeof(float);
+}
+
+constexpr int pow2_floor(int x) { return x >= 2 ? 2 * pow2_floor(x / 2) : 1; }
+
+// Compile-time layout of a lane's work in the FMA kernel. LPS lanes
+// cover a slot (PPL 16-byte pieces each), SPS slots a warp step, STEPS
+// steps a round of 16 slots; RB query rows are held in registers by each
+// warp: q and acc (2 N PPL a row) and the round's scores (STEPS a row)
+// in about 96 registers.
+template <typename TC, int LPS, int PPL> struct Layout {
+  static constexpr int N = Piece<TC>::N;
+  static constexpr int SPS = 32 / LPS;
+  static constexpr int STEPS = kRound / SPS;
+  static constexpr int FIT = 96 / (2 * N * PPL + STEPS);
+  static constexpr int RB = pow2_floor(FIT < 8 ? (FIT < 1 ? 1 : FIT) : 8);
+  static_assert(SPS * STEPS == kRound, "a round is 16 slots");
+};
+
+// The FMA split kernel, for f32 queries and head dims past 128: grid
+// (n_split, h_kv, b * n_pass), CTA (split, head, seq * n_pass + pass).
+template <typename TQ, typename TC, int LPS, int PPL>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_decode_split_kernel(const __grid_constant__ Args a) {
+  using Lay = Layout<TC, LPS, PPL>;
+  constexpr int N = Lay::N;
+  constexpr int RB = Lay::RB;
+  constexpr int SPS = Lay::SPS;
+  constexpr int STEPS = Lay::STEPS;
+  const Work w = plan(a, RB);
+  if (w.tile0 >= w.tile1) {
+    write_empty<TQ>(a, w);
+    return;
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool quantized = ks != nullptr;
+  const bool quantized = a.ks != nullptr;
+  const int hd = a.hd;
+  const int stride = hd + 2;
   const int row_bytes = hd * (int)sizeof(TC);
-  const int row_stride = row_bytes + kPad;
-  const size_t tile_bytes = (size_t)kSubT * row_stride;
+  const int tile_bytes = kTile * row_bytes;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // [stages] x (K tile, V tile), then [stages] x (K, V scales), then the
+  // warps' merge state, then the barriers
+  unsigned char* ring = smem;
+  float* scales = reinterpret_cast<float*>(smem + 2 * a.stages * tile_bytes);
+  float* mrg = scales + (quantized ? 2 * a.stages * kTile : 0);
+  const uint32_t bar_full = smem_addr(mrg + kConsumerWarps * RB * stride);
+  const uint32_t bar_empty = bar_full + 8 * kMaxStages;
+  const int n_t = w.tile1 - w.tile0;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* k_s = smem;                            // [stages][kSubT][row]
-  unsigned char* v_s = smem + stages * tile_bytes;
-  float* q_s = reinterpret_cast<float*>(smem + 2 * stages * tile_bytes);
-  float* acc_s = q_s + rep * hd;                        // [rep, hd]
-  float* p_s = acc_s + rep * hd;                        // [rep, kSubT]
-  float* ks_s = p_s + rep * kSubT;                      // [stages][kSubT]
-  float* vs_s = ks_s + stages * kSubT;
-  float* m_s = vs_s + stages * kSubT;
-  float* l_s = m_s + rep;
-  float* alpha_s = l_s + rep;
-
-  // query row r of this KV head is head (blockIdx.y * rep + r)
-  for (int i = tid; i < rep * hd; i += kThreads) {
-    q_s[i] = to_f(q[bh * rep * hd + i]);
-    acc_s[i] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int r = tid; r < rep; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
+  __syncthreads();
 
-  const unsigned char* kb =
-      reinterpret_cast<const unsigned char*>(k) + bh * L * row_bytes;
-  const unsigned char* vb =
-      reinterpret_cast<const unsigned char*>(v) + bh * L * row_bytes;
-  const int chunks_per_row = row_bytes / 16;
-  const int n_tiles = (n_live + kSubT - 1) / kSubT;
-  const int tile_begin = split * tiles_per_split;
-  const int tile_end = min(tile_begin + tiles_per_split, n_tiles);
-
-  // start the copies of sub-tile `tile` into buffer `stage`
-  auto load_tile = [&](int tile, int stage) {
-    const int t0 = tile * kSubT;
-    const int nt = min(kSubT, n_live - t0);
-    unsigned char* kd = k_s + stage * tile_bytes;
-    unsigned char* vd = v_s + stage * tile_bytes;
-    const unsigned char* ksrc = kb + (int64_t)t0 * row_bytes;
-    const unsigned char* vsrc = vb + (int64_t)t0 * row_bytes;
-    for (int i = tid; i < nt * chunks_per_row; i += kThreads) {
-      const int r = i / chunks_per_row;
-      const int c = i - r * chunks_per_row;
-      cp_async16(kd + r * row_stride + c * 16, ksrc + (int64_t)i * 16);
-      cp_async16(vd + r * row_stride + c * 16, vsrc + (int64_t)i * 16);
-    }
-    if (quantized) {
-      for (int i = tid; i < nt; i += kThreads) {
-        cp_async4(ks_s + stage * kSubT + i, ks + bh * L + t0 + i);
-        cp_async4(vs_s + stage * kSubT + i, vs + bh * L + t0 + i);
-      }
-    }
-  };
-
-  if (tile_begin < tile_end) load_tile(tile_begin, 0);
-  cp_async_commit();
-  for (int j = tile_begin; j < tile_end; ++j) {
-    const int st = stages == 2 ? (j - tile_begin) & 1 : 0;
-    if (stages == 2) {
-      // the next sub-tile's loads go out before this one is computed
-      if (j + 1 < tile_end) load_tile(j + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const int nt = min(kSubT, n_live - j * kSubT);
-    const unsigned char* kt = k_s + st * tile_bytes;
-    const unsigned char* vt = v_s + st * tile_bytes;
-    const float* kscale = ks_s + st * kSubT;
-    const float* vscale = vs_s + st * kSubT;
-
-    // scores s[r, t] = (q_r . k_t) (* ks_t) * sm_scale, a thread each
-    for (int idx = tid; idx < rep * kSubT; idx += kThreads) {
-      const int r = idx / kSubT;
-      const int t = idx - r * kSubT;
-      if (t < nt) {
-        const unsigned char* krow = kt + t * row_stride;
-        const float* qr = q_s + r * hd;
-        float s = 0.f;
-        for (int c = 0; c < hd; c += Chunk<TC>::N) {
-          float kv[Chunk<TC>::N];
-          Chunk<TC>::load(krow + c * (int)sizeof(TC), kv);
-#pragma unroll
-          for (int e = 0; e < Chunk<TC>::N; ++e) s += qr[c + e] * kv[e];
-        }
-        if (quantized) s *= kscale[t];
-        p_s[r * kSubT + t] = s * sm_scale;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query row; P is scaled by the V scale
-    // and rounded to q's dtype for the P.V product, after l has summed it
-    for (int r = warp; r < rep; r += kWarps) {
-      float* pr = p_s + r * kSubT;
-      float mx = kNegInf;
-      for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, pr[t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-        float p = expf(pr[t] - m_new);
-        sum += p;
-        if (quantized) p *= vscale[t];
-        pr[t] = round_to<TQ>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc[r, d] = acc * alpha + sum_t P[r, t] * V[t, d]
-    for (int idx = tid; idx < rep * hd; idx += kThreads) {
-      const int r = idx / hd;
-      const int d = idx - r * hd;
-      const float* pr = p_s + r * kSubT;
-      float a = acc_s[idx] * alpha_s[r];
-      for (int t = 0; t < nt; ++t)
-        a += pr[t] *
-             to_f(reinterpret_cast<const TC*>(vt + t * row_stride)[d]);
-      acc_s[idx] = a;
-    }
-    __syncthreads();
-    if (stages == 1 && j + 1 < tile_end) {
-      load_tile(j + 1, 0);
-      cp_async_commit();
-    }
-  }
-
-  if (n_split == 1) {
-    for (int idx = tid; idx < rep * hd; idx += kThreads) {
-      const int r = idx / hd;
-      out[bh * rep * hd + idx] = from_f<TQ>(acc_s[idx] / l_s[r]);
-    }
+  if (warp == kConsumerWarps) {
+    if (lane == 0) produce<TC>(a, w, ring, scales, bar_full, bar_empty);
     return;
   }
-  // partial state [bh, split, r, 0:hd] = acc, [hd] = m, [hd + 1] = l
-  const int stride = hd + 2;
-  float* mine = part + ((bh * n_split + split) * rep) * stride;
-  for (int idx = tid; idx < rep * hd; idx += kThreads) {
-    const int r = idx / hd;
-    mine[r * stride + idx - r * hd] = acc_s[idx];
+
+  // ------------------------------------------------------ consumers
+  const int rg = warp / w.sg_n;
+  const int sg = warp - rg * w.sg_n;
+  const int wrows = max(0, min(RB, w.rows - rg * RB));
+  const int piece0 = lane % LPS;               // + LPS * j, j < PPL
+  const int sub = lane / LPS;                  // slot within a step
+  const int pieces = row_bytes / 16;
+
+  float qr[RB][PPL][N];
+  float acc[RB][PPL][N];
+  float m[RB], l[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) {
+      const int c = piece0 + LPS * j;
+      const bool have = r < wrows && c < pieces;
+      const TQ* src = static_cast<const TQ*>(a.q) +
+                      (w.bh * a.rep + w.row0 + rg * RB + r) * hd + c * N;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        qr[r][j][e] = have ? to_f(src[e]) : 0.f;
+        acc[r][j][e] = 0.f;
+      }
+    }
   }
-  for (int r = tid; r < rep; r += kThreads) {
-    mine[r * stride + hd] = m_s[r];
-    mine[r * stride + hd + 1] = l_s[r];
+  bool live_piece[PPL];
+#pragma unroll
+  for (int j = 0; j < PPL; ++j) live_piece[j] = piece0 + LPS * j < pieces;
+
+  for (int it = 0; it < n_t; ++it) {
+    const int s = it % a.stages;
+    mbar_wait(bar_full + 8 * s, (it / a.stages) & 1);
+    if (wrows > 0) {
+      const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
+      const unsigned char* vt = kt + tile_bytes;
+      const float* kscale = scales + s * 2 * kTile;
+      const float* vscale = kscale + kTile;
+      const int live = w.slot_end - (w.tile0 + it) * kTile;  // in the tile
+      // this warp's slots of the tile: RG rounds of 16 from sg * 16 RG
+      for (int rd = 0; rd < w.rg_n; ++rd) {
+        const int slot0 = (sg * w.rg_n + rd) * kRound;  // within the tile
+        if (slot0 >= live) break;
+        float sc[STEPS][RB];
+        float mx[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) mx[r] = kNegInf;
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          const int t = slot0 + i * SPS + sub;
+          const bool valid = t < live;
+          float dot[RB];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) dot[r] = 0.f;
+          if (valid) {
+#pragma unroll
+            for (int j = 0; j < PPL; ++j) {
+              if (!live_piece[j]) continue;
+              float kv[N];
+              Piece<TC>::load(kt + t * row_bytes + (piece0 + LPS * j) * 16,
+                              kv);
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int e = 0; e < N; ++e)
+                  dot[r] = fmaf(qr[r][j][e], kv[e], dot[r]);
+            }
+          }
+          // the slot's lanes sum their pieces; all of them hold the score
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            float x = dot[r];
+#pragma unroll
+            for (int o = LPS / 2; o > 0; o >>= 1)
+              x += __shfl_xor_sync(0xffffffffu, x, o);
+            if (quantized) x *= kscale[t];
+            x *= a.sm_scale;
+            sc[i][r] = valid ? x : kNegInf;
+            mx[r] = fmaxf(mx[r], sc[i][r]);
+          }
+        }
+        // the round's max over the warp's slots, then the online update
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+#pragma unroll
+          for (int o = LPS; o < 32; o <<= 1)
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+          const float m_new = fmaxf(m[r], mx[r]);
+          const float alpha = expf(m[r] - m_new);
+          m[r] = m_new;
+          l[r] *= alpha;
+#pragma unroll
+          for (int j = 0; j < PPL; ++j)
+#pragma unroll
+            for (int e = 0; e < N; ++e) acc[r][j][e] *= alpha;
+        }
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          const int t = slot0 + i * SPS + sub;
+          const bool valid = t < live;
+          float pv[RB];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            // by select: a slot past the run adds nothing, NaN or not
+            const float p = valid ? expf(sc[i][r] - m[r]) : 0.f;
+            l[r] += p;
+            const float pw = (quantized && valid) ? p * vscale[t] : p;
+            pv[r] = round_to<TQ>(pw);
+          }
+          if (valid) {
+#pragma unroll
+            for (int j = 0; j < PPL; ++j) {
+              if (!live_piece[j]) continue;
+              float vv[N];
+              Piece<TC>::load(vt + t * row_bytes + (piece0 + LPS * j) * 16,
+                              vv);
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+#pragma unroll
+                for (int e = 0; e < N; ++e)
+                  acc[r][j][e] = fmaf(pv[r], vv[e], acc[r][j][e]);
+            }
+          }
+        }
+      }
+    }
+    // the ring slot goes back to the producer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // the warp's slot groups sum their l and acc (m is the warp's already)
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+#pragma unroll
+    for (int o = LPS; o < 32; o <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+      for (int j = 0; j < PPL; ++j)
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          acc[r][j][e] += __shfl_xor_sync(0xffffffffu, acc[r][j][e], o);
+    }
+  }
+  float* mine = mrg + warp * RB * stride;
+  if (lane < LPS) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r >= wrows) break;
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) {
+        const int c = piece0 + LPS * j;
+        if (c >= pieces) continue;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          mine[r * stride + c * N + e] = acc[r][j][e];
+      }
+      if (lane == 0) {
+        mine[r * stride + hd] = m[r];
+        mine[r * stride + hd + 1] = l[r];
+      }
+    }
+  }
+  consumers_sync();
+  merge_warps<TQ>(a, w, mrg, RB);
+}
+
+// ---------------------------------------------------------------------
+// The tensor-core split kernel, for bf16 queries and head dims up to
+// 128 (the generation path): mma.sync m16n8k16 (bf16 in, f32 out) on
+// fragments loaded straight from the ring. The scores are taken
+// transposed, S^T = K Q^T, with 16 slots as M and the warp's 8 query
+// rows as N (rows past the GQA group are 0), and the output too, O^T +=
+// V^T P^T, with 16 head dims as M: the few query rows sit in the narrow
+// N side, so an accumulator holds half of what Q K^T would, and each
+// slot's exp is taken once per query row.
+//
+// Fragments without a transpose through shared memory: the dot products
+// may sum the head dims in any order, so k index (2t + e + 8 g) of
+// k-step (2c + h) is head dim 32 c + 8 t + 4 h + 2 g + e (t = lane % 4),
+// and lane t reads 16 contiguous bytes of a K row (4 bf16 pairs, or 8
+// int8 codes widened exactly) for two k-steps; the q fragments hold the
+// same dims. P^T comes from S^T's accumulators by one movmatrix.trans
+// for each 8 slots. V^T pairs two slots of one head dim: rows g and
+// g + 8 of m-tile j of head-dim group G are dims 64 G + 8 g + 2 j and
+// + 1, so a lane reads 16 contiguous bytes of each of its four slots' V
+// rows and packs pairs with one byte permute each. The output's dim
+// order is undone when the accumulators are written out.
+constexpr int kMmaRows = 8;      // query rows: the n8 side of a fragment
+
+// 8 consecutive cache elements in shared memory as 4 bf16 pairs
+template <typename TC> struct Pairs8;
+template <> struct Pairs8<__nv_bfloat16> {
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              uint32_t (&w)[4]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  }
+};
+// int8 codes widen exactly: byte c ^ 0x80 (= c + 128) goes into the
+// mantissa of 2^23, and 2^23 + 128 is taken off in f32 (a byte permute
+// and an add per code, where a conversion instruction runs at a quarter
+// of the rate)
+template <> struct Pairs8<int8_t> {
+  __device__ __forceinline__ static float code(uint32_t biased, int i) {
+    const uint32_t sel = 0x7650u | (uint32_t)i;
+    return __uint_as_float(__byte_perm(biased, 0x4B000000u, sel)) -
+           8388736.f;
+  }
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              uint32_t (&w)[4]) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const uint32_t x[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(
+          code(x[i / 2], 2 * (i % 2)), code(x[i / 2], 2 * (i % 2) + 1));
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// the transpose of an 8 x 8 bf16 matrix held a row per lane quad
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// d += a b, m16n8k16, bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <typename TC, int HD>
+__global__ void __launch_bounds__(kThreads, 3)
+    flash_decode_split_mma_kernel(const __grid_constant__ Args a) {
+  constexpr int kChunks = HD / 32;   // 32-dim chunks: two k-steps each
+  constexpr int kGroups = HD / 64;   // 64-dim groups: 4 m-tiles each
+  constexpr int kEl = (int)sizeof(TC);
+  const Work w = plan(a, kMmaRows);
+  if (w.tile0 >= w.tile1) {
+    write_empty<__nv_bfloat16>(a, w);
+    return;
+  }
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;           // fragment row group
+  const int t = lane & 3;
+  const bool quantized = a.ks != nullptr;
+  const int hd = a.hd;
+  const int stride = hd + 2;
+  const int row_bytes = hd * kEl;
+  const int tile_bytes = kTile * row_bytes;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // [stages] x (K tile, V tile), [stages] x (K, V scales), the barriers;
+  // the warps' merge state reuses the ring once the walk is done
+  unsigned char* ring = smem;
+  float* scales = reinterpret_cast<float*>(smem + 2 * a.stages * tile_bytes);
+  const size_t ring_bytes =
+      2 * (size_t)a.stages * tile_bytes +
+      (quantized ? 2 * (size_t)a.stages * kTile * sizeof(float) : 0);
+  const size_t mrg_bytes = merge_bytes(kMmaRows, hd);
+  const uint32_t bar_full =
+      smem_addr(smem) + (uint32_t)(ring_bytes > mrg_bytes ? ring_bytes
+                                                          : mrg_bytes);
+  const uint32_t bar_empty = bar_full + 8 * kMaxStages;
+  const int n_t = w.tile1 - w.tile0;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    if (lane == 0) produce<TC>(a, w, ring, scales, bar_full, bar_empty);
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  const int rg = warp / w.sg_n;
+  const int sg = warp - rg * w.sg_n;
+  const int wrows = max(0, min(kMmaRows, w.rows - rg * kMmaRows));
+
+  // q fragments (B of S^T): row g, dims 32 c + 8 t + [0, 8) as 4 pairs
+  uint32_t qf[kChunks][4];
+  {
+    const uint16_t* qr = static_cast<const uint16_t*>(a.q) +
+                         (w.bh * a.rep + w.row0 + rg * kMmaRows + g) * hd;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int d0 = 32 * c + 8 * t;
+      const bool have = g < wrows && d0 < hd;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qf[c][i] = have ? (uint32_t)qr[d0 + 2 * i] |
+                              ((uint32_t)qr[d0 + 2 * i + 1] << 16)
+                        : 0u;
+    }
+  }
+  // O^T accumulators: m-tile 4 G + j holds dims 64 G + 8 g + 2 j (+ 1 in
+  // c2, c3) against query rows 2 t, 2 t + 1
+  float o[4 * kGroups][4];
+#pragma unroll
+  for (int n = 0; n < 4 * kGroups; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows 2t, 2t + 1
+
+  for (int it = 0; it < n_t; ++it) {
+    const int s = it % a.stages;
+    mbar_wait(bar_full + 8 * s, (it / a.stages) & 1);
+    if (wrows > 0) {
+      const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
+      const unsigned char* vt = kt + tile_bytes;
+      const float* kscale = scales + s * 2 * kTile;
+      const float* vscale = kscale + kTile;
+      const int live = w.slot_end - (w.tile0 + it) * kTile;  // in the tile
+      for (int rd = 0; rd < w.rg_n; ++rd) {
+        const int slot0 = (sg * w.rg_n + rd) * kRound;  // within the tile
+        if (slot0 >= live) break;
+        const bool whole = slot0 + kRound <= live;
+        // S^T = K Q^T: slots slot0 + g (c0, c1) and slot0 + 8 + g (c2,
+        // c3) against rows 2t, 2t + 1, in two chains of k-steps (h) for
+        // a shorter latency
+        float st[4] = {0.f, 0.f, 0.f, 0.f}, st2[4] = {0.f, 0.f, 0.f, 0.f};
+        {
+          const unsigned char* k0 = kt + (slot0 + g) * row_bytes;
+          const unsigned char* k1 = k0 + 8 * row_bytes;
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            uint32_t kw[4] = {0u, 0u, 0u, 0u}, kx[4] = {0u, 0u, 0u, 0u};
+            if (32 * c + 8 * t < hd) {
+              Pairs8<TC>::load(k0 + (32 * c + 8 * t) * kEl, kw);
+              Pairs8<TC>::load(k1 + (32 * c + 8 * t) * kEl, kx);
+            }
+            mma_bf16(st, kw[0], kx[0], kw[1], kx[1], qf[c][0], qf[c][1]);
+            mma_bf16(st2, kw[2], kx[2], kw[3], kx[3], qf[c][2], qf[c][3]);
+          }
+        }
+        // the online update per query row (e & 1), its max over the
+        // slots of the 8 lane quads
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int slot = slot0 + g + 8 * (e >> 1);
+          float x = st[e] + st2[e];
+          if (quantized) x *= kscale[slot];
+          x *= a.sm_scale;
+          st[e] = (whole || slot < live) ? x : kNegInf;
+          mx[e & 1] = fmaxf(mx[e & 1], st[e]);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int o2 = 4; o2 < 32; o2 <<= 1)
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          alpha[r] = expf(m[r] - m_new);
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+        // P, by select past the run (a NaN there adds nothing); l sums
+        // it unscaled, and P V takes it times the V scale in bf16
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int slot = slot0 + g + 8 * (e >> 1);
+          const bool valid = whole || slot < live;
+          p[e] = valid ? expf(st[e] - m[e & 1]) : 0.f;
+          l[e & 1] += p[e];
+          if (quantized && valid) p[e] *= vscale[slot];
+        }
+        const uint32_t pb0 = transpose8x8(pack_bf16(p[0], p[1]));
+        const uint32_t pb1 = transpose8x8(pack_bf16(p[2], p[3]));
+#pragma unroll
+        for (int n = 0; n < 4 * kGroups; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[1];
+          o[n][2] *= alpha[0];
+          o[n][3] *= alpha[1];
+        }
+        // O^T += V^T P^T: the lane's slots slot0 + {2t, 2t + 1, 2t + 8,
+        // 2t + 9}, dims 64 G + 8 g + [0, 8)
+#pragma unroll
+        for (int G = 0; G < kGroups; ++G) {
+          uint32_t vw[4][4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int slot = slot0 + 2 * t + (x & 1) + 8 * (x >> 1);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) vw[x][i] = 0u;
+            if (64 * G + 8 * g < hd && (whole || slot < live))
+              Pairs8<TC>::load(vt + slot * row_bytes + (64 * G + 8 * g) * kEl,
+                               vw[x]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(o[4 * G + j], __byte_perm(vw[0][j], vw[1][j], 0x5410u),
+                     __byte_perm(vw[0][j], vw[1][j], 0x7632u),
+                     __byte_perm(vw[2][j], vw[3][j], 0x5410u),
+                     __byte_perm(vw[2][j], vw[3][j], 0x7632u), pb0, pb1);
+        }
+      }
+    }
+    // the ring slot goes back to the producer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // l over the 8 lane quads (m is theirs already); once every warp is
+  // done with the ring, the warps' states go where the ring was
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int o2 = 4; o2 < 32; o2 <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o2);
+  consumers_sync();
+  float* mrg = reinterpret_cast<float*>(smem);
+  float* mine = mrg + warp * kMmaRows * stride;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 2 * t + e;
+    if (r >= wrows) continue;
+    float* row = mine + r * stride;
+#pragma unroll
+    for (int G = 0; G < kGroups; ++G)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int d = 64 * G + 8 * g + 2 * j + hi;
+          if (d < hd) row[d] = o[4 * G + j][2 * hi + e];
+        }
+    if (g == 0) {
+      row[hd] = m[e];
+      row[hd + 1] = l[e];
+    }
+  }
+  consumers_sync();
+  merge_warps<__nv_bfloat16>(a, w, mrg, kMmaRows);
+}
+
+// grid ceil(b * h / 4), 4 warps: warp w merges query row (block * 4 + w)
+// over its n_split partial states, lane d of the warp head dims d + 32 i
+// (i < DIMS). The states come in groups of 8 splits whose loads are all
+// issued before any is used, folded in by the online rescaling; each
+// split's weight exp(m_s - m) is taken once per group, not per dim. An
+// empty split weighs exp(-1e30 - m) = 0.
+template <typename TQ, int DIMS>
+__global__ void __launch_bounds__(32 * kMergeWarps) flash_decode_merge_kernel(
+    const float* __restrict__ part, TQ* __restrict__ out, int n_rows, int rep,
+    int hd, int n_split) {
+  constexpr int kGroup = 8;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int stride = hd + 2;
+  const int64_t bh = row / rep;
+  const int r = (int)(row - bh * rep);
+  const float* base = part + (bh * n_split * rep + r) * stride;
+  const int64_t split_stride = (int64_t)rep * stride;
+  float acc[DIMS];
+#pragma unroll
+  for (int i = 0; i < DIMS; ++i) acc[i] = 0.f;
+  float m = kNegInf, l = 0.f;
+  for (int s0 = 0; s0 < n_split; s0 += kGroup) {
+    float ms[kGroup], ls[kGroup], av[kGroup][DIMS];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const bool have = s0 + j < n_split;
+      const float* ps = base + (s0 + j) * split_stride;
+      ms[j] = have ? ps[hd] : kNegInf;
+      ls[j] = have ? ps[hd + 1] : 0.f;
+#pragma unroll
+      for (int i = 0; i < DIMS; ++i) {
+        const int d = lane + 32 * i;
+        av[j][i] = have && d < hd ? ps[d] : 0.f;
+      }
+    }
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) m_new = fmaxf(m_new, ms[j]);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < DIMS; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const float wt = expf(ms[j] - m_new);
+      l = fmaf(ls[j], wt, l);
+#pragma unroll
+      for (int i = 0; i < DIMS; ++i) acc[i] = fmaf(av[j][i], wt, acc[i]);
+    }
+    m = m_new;
+  }
+  l = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < DIMS; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) out[row * hd + d] = from_f<TQ>(__fdividef(acc[i], l));
   }
 }
 
-// one CTA per (sequence, KV head): merges the n_split partial states of
-// each of its query rows, rescaled to their common maximum
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads) combine_kernel(
-    const float* __restrict__ part, TQ* __restrict__ out, int rep, int hd,
-    int n_split) {
-  const int64_t bh = blockIdx.x;
-  const int stride = hd + 2;
-  const int64_t split_stride = (int64_t)rep * stride;
-  for (int idx = threadIdx.x; idx < rep * hd; idx += kThreads) {
-    const int r = idx / hd;
-    const int d = idx - r * hd;
-    const float* base = part + (bh * n_split * rep + r) * stride;
-    float m = kNegInf;
-    for (int s = 0; s < n_split; ++s)
-      m = fmaxf(m, base[s * split_stride + hd]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* ps = base + s * split_stride;
-      const float w = expf(ps[hd] - m);
-      l += ps[hd + 1] * w;
-      a += ps[d] * w;
+// Launches a split kernel with its ring of 1-4 stages in about `budget`
+// bytes and the warps' merge state, which aliases the ring where `alias`
+// is set. `raised` holds the kernel's own flags, one per device: its
+// shared-memory limit is raised once on each, so that a launch under
+// graph capture makes no attribute call.
+template <typename TC>
+int launch_split(void (*kernel)(Args), bool* raised, Args a, int b,
+                 int n_split, int rb, bool alias, size_t budget,
+                 cudaStream_t stream) {
+  const bool quantized = a.ks != nullptr;
+  const size_t per_stage = stage_bytes<TC>(a.hd, quantized);
+  const size_t mrg = merge_bytes(rb, a.hd);
+  const size_t bars = 2 * kMaxStages * 8;
+  auto total = [&](int stages) {
+    const size_t ring = stages * per_stage;
+    return (alias ? (ring > mrg ? ring : mrg) : ring + mrg) + bars;
+  };
+  int stages = (int)(budget / per_stage);
+  stages = stages < 1 ? 1 : (stages > kMaxStages ? kMaxStages : stages);
+  if (stages < 2 && total(2) <= kMaxSmem) stages = 2;
+  const size_t smem = total(stages);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > 48 * 1024 && !(dev < kMaxDevices && raised[dev])) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) raised[dev] = true;
+  }
+  const int rows_per_pass = kConsumerWarps * rb;
+  a.n_pass = (a.rep + rows_per_pass - 1) / rows_per_pass;
+  a.stages = stages;
+  kernel<<<dim3(n_split, a.h_kv, b * a.n_pass), kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TC, int LPS, int PPL>
+int launch_fma(const Args& a, int b, int n_split, cudaStream_t stream) {
+  static bool raised[kMaxDevices] = {};
+  return launch_split<TC>(flash_decode_split_kernel<TQ, TC, LPS, PPL>,
+                          raised, a, b, n_split, Layout<TC, LPS, PPL>::RB,
+                          false, kFmaRingBytes, stream);
+}
+
+template <typename TC, int HD>
+int launch_mma(const Args& a, int b, int n_split, cudaStream_t stream) {
+  static bool raised[kMaxDevices] = {};
+  return launch_split<TC>(flash_decode_split_mma_kernel<TC, HD>, raised, a,
+                          b, n_split, kMmaRows, true, kMmaRingBytes, stream);
+}
+
+// The kernel for q's dtype and hd: bf16 queries up to hd 128 take the
+// tensor-core kernel; f32 queries and wider heads the FMA kernel, whose
+// LPS is the 16-byte pieces of a row rounded up to a power of two (2 to
+// 32), two pieces a lane past 32.
+template <typename TQ, typename TC>
+int launch_layout(const Args& a, int b, int n_split, cudaStream_t stream) {
+  const int hd = a.hd;
+  const int pieces = hd * (int)sizeof(TC) / 16;
+  if constexpr (sizeof(TQ) == 2) {
+    if (hd <= 64) return launch_mma<TC, 64>(a, b, n_split, stream);
+    if (hd <= 128) return launch_mma<TC, 128>(a, b, n_split, stream);
+    if constexpr (sizeof(TC) == 2)
+      return launch_fma<TQ, TC, 32, 1>(a, b, n_split, stream);
+    else
+      return launch_fma<TQ, TC, 16, 1>(a, b, n_split, stream);
+  } else {
+    if constexpr (sizeof(TC) == 4) {
+      if (pieces > 32) return launch_fma<TQ, TC, 32, 2>(a, b, n_split, stream);
+      if (pieces > 16) return launch_fma<TQ, TC, 32, 1>(a, b, n_split, stream);
     }
-    out[bh * rep * hd + idx] = from_f<TQ>(a / l);
+    if (pieces > 8) return launch_fma<TQ, TC, 16, 1>(a, b, n_split, stream);
+    if (pieces > 4) return launch_fma<TQ, TC, 8, 1>(a, b, n_split, stream);
+    if (pieces > 2) return launch_fma<TQ, TC, 4, 1>(a, b, n_split, stream);
+    if constexpr (sizeof(TC) == 1)
+      return launch_fma<TQ, TC, 2, 1>(a, b, n_split, stream);
+    return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename TQ, typename TC>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, void* out, void* part, int b, int h_kv, int rep,
-           int hd, int L, int n_live, int tiles_per_split, int n_split,
-           cudaStream_t stream) {
-  if (hd % 16 != 0 || (n_split > 1 && part == nullptr))
+int launch(const Args& a, int b, int n_split, cudaStream_t stream) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v) |
+        reinterpret_cast<uintptr_t>(a.ks) |
+        reinterpret_cast<uintptr_t>(a.vs)) % 16) == 0;
+  if (!aligned || a.hd % 16 != 0 || a.hd > 256 || a.L % 128 != 0 ||
+      n_split < 1 || n_split > a.L / kTile ||
+      (n_split > 1 && a.part == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int row_stride = hd * (int)sizeof(TC) + kPad;
-  int stages = 2;
-  size_t smem = smem_bytes(stages, rep, hd, row_stride);
-  if (smem > kMaxSmem) {
-    stages = 1;
-    smem = smem_bytes(stages, rep, hd, row_stride);
-  }
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<TQ, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(n_split, h_kv, b);
-  decode_kernel<TQ, TC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(k),
-      static_cast<const TC*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<TQ*>(out),
-      static_cast<float*>(part), h_kv, rep, hd, L, n_live, tiles_per_split,
-      stages, (float)(1.0 / sqrt((double)hd)));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 1) return (int)e;
-  combine_kernel<TQ><<<b * h_kv, kThreads, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<TQ*>(out), rep, hd,
-      n_split);
+  const int rc = launch_layout<TQ, TC>(a, b, n_split, stream);
+  if (rc != 0 || n_split == 1) return rc;
+  const int n_rows = b * a.h_kv * a.rep;
+  const int blocks = (n_rows + kMergeWarps - 1) / kMergeWarps;
+  if (a.hd <= 128)
+    flash_decode_merge_kernel<TQ, 4><<<blocks, 32 * kMergeWarps, 0, stream>>>(
+        a.part, static_cast<TQ*>(a.out), n_rows, a.rep, a.hd, n_split);
+  else
+    flash_decode_merge_kernel<TQ, 8><<<blocks, 32 * kMergeWarps, 0, stream>>>(
+        a.part, static_cast<TQ*>(a.out), n_rows, a.rep, a.hd, n_split);
   return (int)cudaGetLastError();
-}
-
-template <typename TQ>
-int launch_q(int quantized, const void* q, const void* k, const void* v,
-             const void* ks, const void* vs, void* out, void* part, int b,
-             int h_kv, int rep, int hd, int L, int n_live,
-             int tiles_per_split, int n_split, cudaStream_t stream) {
-  if (quantized)
-    return launch<TQ, int8_t>(q, k, v, ks, vs, out, part, b, h_kv, rep, hd,
-                              L, n_live, tiles_per_split, n_split, stream);
-  return launch<TQ, TQ>(q, k, v, nullptr, nullptr, out, part, b, h_kv, rep,
-                        hd, L, n_live, tiles_per_split, n_split, stream);
 }
 
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16; quantized: the cache holds int8
 // codes and ks/vs are its f32 scales (else the cache is in q's dtype and
-// ks/vs are ignored). `part` is f32 scratch [b * h_kv, n_split, rep,
-// hd + 2], needed when n_split > 1. Returns a cudaError_t (0 = success).
+// ks/vs are ignored). The position is `*pos_dev` (an int32 on the
+// device, read by the kernel) when pos_dev is not null, else pos_host.
+// n_split (1 to L / 64) comes from L, b * h_kv and the SM count only;
+// `part` is f32 scratch [b * h_kv, n_split, rep, hd + 2], needed when
+// n_split > 1. Returns a cudaError_t (0 = success).
 extern "C" int flash_decode_attention_launch(
     int q_dtype, int quantized, const void* q, const void* k, const void* v,
-    const void* ks, const void* vs, void* out, void* part, int b, int h_kv,
-    int rep, int hd, int L, int n_live, int tiles_per_split, int n_split,
-    void* stream) {
+    const void* ks, const void* vs, const void* pos_dev, int pos_host,
+    void* out, void* part, int b, int h_kv, int rep, int hd, int L,
+    int n_split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ks = quantized ? static_cast<const float*>(ks) : nullptr;
+  a.vs = quantized ? static_cast<const float*>(vs) : nullptr;
+  a.pos_dev = static_cast<const int*>(pos_dev);
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.h_kv = h_kv;
+  a.rep = rep;
+  a.hd = hd;
+  a.L = L;
+  a.pos_host = pos_host;
+  a.n_pass = 1;
+  a.stages = 1;
+  a.sm_scale = (float)(1.0 / sqrt((double)hd));
   if (q_dtype == 0)
-    return launch_q<float>(quantized, q, k, v, ks, vs, out, part, b, h_kv,
-                           rep, hd, L, n_live, tiles_per_split, n_split, s);
+    return quantized ? launch<float, int8_t>(a, b, n_split, s)
+                     : launch<float, float>(a, b, n_split, s);
   if (q_dtype == 1)
-    return launch_q<__nv_bfloat16>(quantized, q, k, v, ks, vs, out, part, b,
-                                   h_kv, rep, hd, L, n_live, tiles_per_split,
-                                   n_split, s);
+    return quantized ? launch<__nv_bfloat16, int8_t>(a, b, n_split, s)
+                     : launch<__nv_bfloat16, __nv_bfloat16>(a, b, n_split, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,16 +12,25 @@ kernel ``csrc/decode_attention.cu`` (it replaces the Pallas
 ``_decode_kernel``). It dispatches on the device of its inputs: CPU
 tensors take :func:`flash_decode_attention_plain`, CUDA tensors launch
 the kernel, and anything else raises. Each launch adds one to
-``flash_decode_attention.launches``. ``pos`` is a Python int: the
-caller knows it on the host, so no launch reads it back from the device.
+``flash_decode_attention.launches``.
+
+``pos`` is a Python int, or an int32 tensor of shape ``[]`` or ``[1]``
+(the reference's ``atleast_1d(pos)``). On the card the kernel reads a
+device ``pos`` itself: its grid and scratch depend on L, ``b * h_kv``
+and the SM count only (:func:`decode_n_split`), and each CTA takes its
+own run of slots from ``pos`` (:func:`decode_partition`), so a launch
+can be captured in a CUDA graph and replayed at any position. A device
+``pos`` is never read on the host, so it is not checked: a value below
+0 sees no slot and gives 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import operator
-from typing import Optional
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -32,11 +41,10 @@ NEG_INF = -1e30
 # cache-block width full-length caches are padded to a multiple of
 KV_BLOCK = 128
 
-# slots of K and V staged per step of the kernel's loop
-_SUB_T = 64
-# CTAs the kernel aims for by splitting the live slots (132 SMs, about
-# two resident CTAs each)
-_TARGET_CTAS = 264
+# slots of K and V in one tile of the kernel's ring
+_TILE = 64
+# resident CTAs of the split kernel an SM holds
+_CTAS_PER_SM = 2
 _MAX_HEAD_DIM = 256
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,8 +66,34 @@ def decode_block_t(L: int, requested: int = 512) -> int:
     return 0
 
 
-def _check(q, k_cache, v_cache, pos, k_scale, v_scale, block_t) -> int:
-    """The reference's argument checks; returns ``pos`` as an int."""
+def decode_n_split(L: int, bh: int, n_sm: int) -> int:
+    """The kernel's number of splits of each (sequence, KV head)'s live
+    range: enough that ``bh`` (= b * h_kv) times it fills ``n_sm`` SMs
+    with about two CTAs each, and at most one split per 64-slot tile of
+    the cache. It depends on no position."""
+    return max(1, min(L // _TILE, _CTAS_PER_SM * n_sm // max(bh, 1)))
+
+
+def decode_partition(L: int, n_live: int,
+                     n_split: int) -> List[Tuple[int, int]]:
+    """The kernel's partition (``split_tiles`` in
+    ``csrc/decode_attention.cu``): split s reads the slots
+    ``[start, end)`` of the live range ``[0, n_live)`` (n_live =
+    min(pos + 1, L)), balanced runs of whole 64-slot tiles of which only
+    the last may end short; an empty run is ``(x, x)``."""
+    n_live = max(0, min(n_live, L))
+    n_tiles = -(-n_live // _TILE)
+    out = []
+    for s in range(n_split):
+        t0, t1 = s * n_tiles // n_split, (s + 1) * n_tiles // n_split
+        out.append((min(t0 * _TILE, n_live), min(t1 * _TILE, n_live)))
+    return out
+
+
+def _check(q, k_cache, v_cache, pos, k_scale, v_scale, block_t):
+    """The reference's argument checks; returns ``pos`` as an int, or as
+    the int32 tensor it was given when that is not on the CPU (unchecked:
+    reading a CUDA tensor would make the host wait for the card)."""
     b, h, g, hd = q.shape
     if g != 1:
         raise ValueError(f"flash_decode_attention is the g=1 decode read "
@@ -75,6 +109,13 @@ def _check(q, k_cache, v_cache, pos, k_scale, v_scale, block_t) -> int:
         raise ValueError(
             f"cache length {L} has no block divisor >= {KV_BLOCK}; "
             f"pad cache lengths to a multiple of {KV_BLOCK}")
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dim() > 1 or pos.dtype != torch.int32:
+            raise ValueError(f"a tensor pos is an int32 of shape [] or [1]; "
+                             f"got {pos.dtype} {tuple(pos.shape)}")
+        if pos.device.type != "cpu":
+            return pos
+        pos = int(pos.reshape(()))
     pos = operator.index(pos)
     if pos < 0:
         raise ValueError(f"pos must be >= 0, got {pos}")
@@ -114,7 +155,8 @@ def flash_decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, pos: int,
+                           v_cache: torch.Tensor,
+                           pos: Union[int, torch.Tensor],
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            block_t: int = 512) -> torch.Tensor:
@@ -124,22 +166,31 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``block_t`` is the reference's cache-block request: L must have a
     KV_BLOCK-multiple divisor up to it, as there.
 
+    ``pos`` is an int or an int32 tensor of shape [] or [1]. An int, or a
+    tensor on the CPU, must be >= 0; a tensor on the inputs' CUDA device
+    is read by the kernel and never on the host, so it is not checked (a
+    value below 0 gives 0).
+
     CPU tensors run :func:`flash_decode_attention_plain`. CUDA tensors
     launch the kernel of ``csrc/decode_attention.cu`` (built at first
     use) and must be contiguous and on one device, q bf16 or f32, the
     cache of q's dtype or int8, scales f32, head dim a multiple of 16 up
-    to 256; anything else raises. Device reads are O(min(pos + 1, L))."""
+    to 256; anything else raises. Device reads are O(min(pos + 1, L)).
+    The launch's grid and scratch do not depend on ``pos``."""
     pos = _check(q, k_cache, v_cache, pos, k_scale, v_scale, block_t)
+    on_device = isinstance(pos, torch.Tensor)
     tensors = [q, k_cache, v_cache]
     if k_scale is not None:
         tensors += [k_scale, v_scale]
-    if all(t.device.type == "cpu" for t in tensors):
+    devices = [t.device for t in tensors] + ([pos.device] if on_device
+                                             else [])
+    if all(d.type == "cpu" for d in devices):
         return flash_decode_attention_plain(q, k_cache, v_cache, pos,
                                             k_scale, v_scale)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+    if any(d != q.device for d in devices) or q.device.type != "cuda":
         raise ValueError("flash_decode_attention needs all inputs on the "
                          "CPU or all on one CUDA device; got "
-                         f"{[str(t.device) for t in tensors]}")
+                         f"{[str(d) for d in devices]}")
     quantized = k_cache.dtype == torch.int8
     if q.dtype not in _Q_DTYPES or v_cache.dtype != k_cache.dtype \
             or k_cache.dtype not in (q.dtype, torch.int8):
@@ -176,11 +227,7 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if b == 0:
         return out
     rep = h // h_kv
-    n_live = min(pos + 1, L)
-    n_tiles = -(-n_live // _SUB_T)
-    want = max(1, -(-_TARGET_CTAS // (b * h_kv)))
-    tiles_per_split = -(-n_tiles // min(want, n_tiles))
-    n_split = -(-n_tiles // tiles_per_split)
+    n_split = decode_n_split(L, b * h_kv, _sm_count(q.device))
     part = None
     if n_split > 1:
         part = torch.empty((b * h_kv, n_split, rep, hd + 2),
@@ -193,9 +240,10 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
+            pos.data_ptr() if on_device else None,
+            0 if on_device else min(pos, L),   # the same n_live, in int32
             out.data_ptr(), None if part is None else part.data_ptr(),
-            b, h_kv, rep, hd, L, n_live,
-            tiles_per_split, n_split, stream)
+            b, h_kv, rep, hd, L, n_split, stream)
     if rc != 0:
         raise RuntimeError(
             "flash_decode_attention kernel launch failed: "
@@ -208,12 +256,17 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 flash_decode_attention.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _kernel_library() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.flash_decode_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         err = lib.decode_attention_error_string
         err.argtypes = [i]
