@@ -36,20 +36,34 @@ run when it fails:
 7. serving: the full-width serving configuration (vocab 8192, d_model
    1024, 8 heads over 4 KV heads, 6 layers, RoPE, bf16; six prompts of
    256-512 tokens, 96 new tokens each) through ``ServingEngine.run``,
-   with B4's launches counted over that run, then ``serving_throughput``
-   (the engine against per-request ``generate()``, same outputs), then
-   the run once more under ``torch.profiler`` for B4's share of its
-   device time;
+   whose decode steps replay one CUDA graph per block bucket: B4's
+   launches counted per replay over that run, its tokens equal to the
+   warm-up run's, the wall rate with the capture time apart; a decode
+   chunk of replays against ``paged_decode_step`` run eagerly from
+   identical pools; then ``serving_throughput`` (the engine against
+   per-request ``generate()``, same outputs up to near-ties), then the
+   run once more under ``torch.profiler`` for B4's share of its device
+   time;
 8. generation parity: a small GQA/RoPE config in fp32, greedy
-   ``generate`` and teacher-forced ``decode_step`` on the card and on the
-   CPU (full-length cache, int8 cache, a wrapped ring, chunked prefill),
-   with B5's launches counted on the card;
+   ``generate`` (replays of its captured step, under sync-debug mode)
+   and teacher-forced ``decode_step`` on the card and on the CPU
+   (full-length cache, int8 cache, a wrapped ring, chunked prefill),
+   with B5's launches counted on the card; sampling on the card with
+   the caller's generator registered with the graph (top_k = 1 is
+   greedy, a seed repeats its draws);
 9. generation: the full-width decode configuration (vocab 8192, d_model
    2048, 16 heads over 4 KV heads, 8 layers, d_ff 8192, RoPE, bf16; batch
    8, prompt 2048, chains of 32 and 1056 tokens) through
    ``decode_tokens_per_sec`` in bf16, with int8 weights and an int8
-   cache, and with int8 weights alone, with B5's launches counted over
-   one long-chain ``generate`` call;
+   cache, and with int8 weights alone: the wall ms per step (marginal
+   between the chains, each a ``generate`` call that replays its
+   captured step under sync-debug mode), the device ms per step, the
+   idle share and the capture time, beside the eager loop's figures;
+   B5's launches counted per replay over one long-chain call; the long
+   chain by replays against the same chain by the eager step (tokens
+   equal, or parting at a near-tie); then 32 decode steps under
+   ``torch.profiler``, eager and as replays, whose device-busy times
+   must agree with each other and with the long chain's;
 10. training parity: a small GQA/RoPE config in fp32, three
    ``make_train_step`` steps on the card and on the CPU from one seed,
    and the loss of ``entry()`` on both;
@@ -90,8 +104,8 @@ import torch.nn.functional as F
 from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads.models import transformer as tt
 from tpu_dra_driver_torch.workloads.models.generate import (
-    block_prefill, chunked_prefill, decode_step, decode_tokens_per_sec,
-    generate, init_kv_cache,
+    _step_body, block_prefill, chunked_prefill, decode_step,
+    decode_tokens_per_sec, generate, init_kv_cache,
 )
 from tpu_dra_driver_torch.workloads.models.quantize import quantize_params
 from tpu_dra_driver_torch.workloads.models.serving import (
@@ -104,6 +118,7 @@ from tpu_dra_driver_torch.workloads.ops import _build
 from tpu_dra_driver_torch.workloads.ops import attention as fa
 from tpu_dra_driver_torch.workloads.ops import decode_attention as da
 from tpu_dra_driver_torch.workloads.ops import paged_attention as pa
+from tpu_dra_driver_torch.workloads.utils.graphs import StepGraph
 
 DEV = "cuda"
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
@@ -268,8 +283,21 @@ GEN_FULL = ModelConfig(vocab=8192, d_model=2048, n_heads=16, n_kv_heads=4,
                        use_rope=True)
 GEN_FULL_RUN = dict(b=8, prompt_len=2048, gen_short=32, gen_long=1056,
                     iters=3)
-# bf16 decode steps run once more under torch.profiler
+# bf16 decode steps run once more under torch.profiler, eagerly and as
+# replays of the captured step
 PROFILED_DECODE_STEPS = 32
+# the replayed steps' device-busy time over the eager steps': the same
+# kernels on the same data, plus the step's position and token kernels
+# (1.5-2% more); the long chain's rate also carries its prefill and reads
+# up to 1055 more slots (10-11% more so far); a graph whose kernels the
+# profiler missed would read near 0
+DEVICE_STEP_RATIO = (0.9, 1.15)
+# full-width bf16 generation by the eager decode loop, before the decode
+# graphs (PERF.md section 5, H100 80GB HBM3 at 700 W): wall ms per step,
+# device ms per step, idle share
+EAGER_LOOP = "8.5-14.0 ms/step wall, 1.434-1.436 ms/step device, 83-90% idle"
+# decode steps of the engine replayed against the eager step
+ENGINE_GRAPH_STEPS = 8
 # name -> (kv_int8, int8 weights)
 GEN_FULL_VARIANTS = {"bf16": (False, False),
                      "int8 weights + int8 KV": (True, True),
@@ -563,23 +591,31 @@ def full_width_phase(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.paged_decode_attention.launches = 0
+    StepGraph.captures, StepGraph.capture_seconds = 0, 0.0
     t0 = time.perf_counter()
     got = eng.run(prompts, FULL_NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.paged_decode_attention.launches
+    captures, capture_s = StepGraph.captures, StepGraph.capture_seconds
     peak = torch.cuda.max_memory_allocated()
     outs = [got[rid] for rid in sorted(got)]
     n_tok = sum(len(o) for o in outs)
     print(f"{card}: {n_tok} tokens in {wall:.3f} s wall = "
-          f"{n_tok / wall:.1f} tok/s (prefill included); peak memory "
-          f"{peak / 2**20:.1f} MiB; paged kernel launches {launches}; "
-          f"same tokens as the warm-up run: {got == warm}")
+          f"{n_tok / wall:.1f} tok/s (prefill included), the decode steps "
+          f"replayed from {captures} CUDA graph(s) captured in "
+          f"{1e3 * capture_s:.1f} ms, {n_tok / (wall - capture_s):.1f} "
+          f"tok/s without the capture; peak memory {peak / 2**20:.1f} MiB; "
+          f"paged kernel launches {launches}, counted per replay; same "
+          f"tokens as the warm-up run: {got == warm}")
     expect = (FULL_NEW_TOKENS - 1) * FULL.n_layers
     if len(outs) != len(prompts) or any(
             len(o) != FULL_NEW_TOKENS or not all(0 <= t < FULL.vocab
                                                  for t in o) for o in outs):
         raise AssertionError("full-width run produced malformed outputs")
+    if got != warm or captures < 1:
+        raise AssertionError("full-width run: tokens differ from the "
+                             "warm-up run's, or no graph was captured")
     if launches != expect:
         raise AssertionError(f"paged kernel launched {launches} times, "
                              f"expected {expect}")
@@ -612,8 +648,81 @@ def full_width_phase(card: str) -> dict:
           f"cpu| / max |cpu| {rel:.3e} (tolerance {TOL_FULL_WIDTH_REL:.0e})")
     if not finite or not rel <= TOL_FULL_WIDTH_REL:
         raise AssertionError("full-width card and CPU decode steps disagree")
+    _engine_graph_check(eng, params, tokens)
     return {"launches": launches, "tokens_per_s_wall": n_tok / wall,
             "peak_mib": peak / 2**20, "wall_ms": 1e3 * wall}
+
+
+def _engine_graph_check(eng, params, tokens) -> None:
+    """The engine's decode chunk (an eager warm-up step, then replays of
+    its captured step) against ``paged_decode_step`` run eagerly with
+    the argmax fed back, from identical pools: the same tokens (or a
+    parting at a near-tie of the eager logits), and then the same pools
+    outside the null block (bf16 rounding through six layers at most, if
+    cuBLAS took other paths under capture)."""
+    k = ENGINE_GRAPH_STEPS
+    pk = [p.clone() for p in eng.pool_ks]
+    pv = [p.clone() for p in eng.pool_vs]
+    tables = torch.tensor(eng.tables, device=DEV)        # copies
+    lens = torch.tensor(eng.lens, device=DEV)
+    n_live = eng._live_blocks_bucket(k)
+    got = eng.step_chunk(max_steps=k)
+    toks = torch.tensor(tokens, device=DEV)
+    eager, logits = [], []
+    for _ in range(k):
+        lg, pk, pv = paged_decode_step(params, FULL, pk, pv, tables, lens,
+                                       toks, n_live_blocks=n_live)
+        toks = lg.argmax(-1).to(torch.int32)
+        eager.append(toks)
+        logits.append(lg)
+        lens = lens + 1
+    eager = torch.stack(eager, 1).cpu()
+    active = sorted(got)
+    rows = [r.row for r in eng.rows if r is not None]
+    graph = torch.tensor([got[rid] for rid in active])
+    parts = _partings(graph, eager[rows], torch.stack(logits), rows)
+    # block 0 is the null block, where the idle rows' appends collide
+    pools = [(a[1:], b[1:]) for a, b in zip(eng.pool_ks + eng.pool_vs,
+                                            pk + pv)]
+    same_pools = all(torch.equal(a, b) for a, b in pools)
+    rel = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item() for a, b in pools)
+    print(f"  {k} engine decode steps (a warm-up, then replays) against "
+          f"eager paged_decode_step from identical pools: tokens equal "
+          f"{not parts}, pools bit-identical {same_pools} (max |graph - "
+          f"eager| / max |eager| {rel:.3e})"
+          + "".join(f"; row {r} parts at step {j} ({sl:.2e} of the largest "
+                    f"|logit| below the eager top)" for r, j, sl in parts))
+    if any(sl > TOL_TIE_REL for _, _, sl in parts) or (
+            not parts and not rel <= TOL_FULL_WIDTH_REL):
+        raise AssertionError("the engine's replayed steps disagree with "
+                             "the eager step")
+    # the chunk's one wait is its copy of the tokens to the host; its
+    # replays take none (this engine is not used after them)
+    step = eng._steps[n_live]
+    with no_device_waits():
+        for _ in range(k):
+            step()
+    torch.cuda.synchronize()
+    print(f"  {k} more replays of the engine's step under sync-debug mode: "
+          f"no host wait")
+
+
+def _partings(got, ref, logits, rows=None):
+    """Rows where the token streams ``got`` and ``ref`` [n_rows, n]
+    part: (row, step, how far ``got``'s token lies below the top of
+    ``ref``'s logits at that step [n, b, vocab], as a share of their
+    largest |logit|). ``rows`` maps stream rows to logits rows."""
+    out = []
+    for i in range(got.shape[0]):
+        diff = torch.nonzero(got[i] != ref[i])
+        if len(diff):
+            j = int(diff[0])
+            row = i if rows is None else rows[i]
+            lg = logits[j, row].float()
+            out.append((row, j, ((lg.max() - lg[int(got[i, j])])
+                                 / lg.abs().max()).item()))
+    return out
 
 
 FLASH_KERNELS = (
@@ -1248,6 +1357,7 @@ def serving_throughput_phase(card: str, run_ms: float) -> None:
 
 
 def small_generation_phase() -> None:
+    StepGraph.captures = 0
     rng = np.random.RandomState(6)
     params = {dev: init_params(SMALL, 0, device=dev) for dev in (DEV, "cpu")}
     for name, (cfg, t0, steps, kw) in SMALL_GEN.items():
@@ -1291,6 +1401,97 @@ def small_generation_phase() -> None:
                 or not diff <= TOL_ENGINE_LOGITS:
             raise AssertionError(f"generation on the card and the CPU "
                                  f"disagree: {name}")
+    # sampling replays the captured step with the caller's generator
+    # registered with the graph: a top_k = 1 draw is the greedy pick, and
+    # a seed repeats its draws
+    prompt = torch.from_numpy(
+        rng.randint(0, SMALL.vocab, (2, 16)).astype(np.int32)).to(DEV)
+
+    def sample(seed, **kw):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        with no_device_waits():
+            out = generate(params[DEV], SMALL, prompt, steps=24,
+                           generator=gen, **kw)
+        return out.cpu()
+
+    greedy = generate(params[DEV], SMALL, prompt, steps=24).cpu()
+    top1 = sample(0, temperature=0.7, top_k=1)
+    drawn = [sample(seed, temperature=1.0) for seed in (1, 1, 2)]
+    print(f"  sampled on the card: top_k=1 == greedy {torch.equal(top1, greedy)}"
+          f", one seed twice equal {torch.equal(drawn[0], drawn[1])}, two "
+          f"seeds differ {not torch.equal(drawn[0], drawn[2])}, "
+          f"{StepGraph.captures} graphs captured in this phase so far")
+    if not torch.equal(top1, greedy) or not torch.equal(drawn[0], drawn[1]) \
+            or not bool(((drawn[0] >= 0) & (drawn[0] < SMALL.vocab)).all()):
+        raise AssertionError("sampled generation on the card breaks its law")
+
+
+def _eager_chain(params, cfg, prompt, steps, max_t):
+    """The long chain by the eager loop: block prefill, then
+    ``decode_step`` at int positions with the argmax fed back, every
+    kernel issued from the host. Returns (tokens [b, t0 + steps], wall
+    seconds, prefill included, logits of every pick [steps, b, vocab])."""
+    b, t0 = prompt.shape
+    logits = torch.empty((steps, b, cfg.vocab), device=DEV)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    cache = init_kv_cache(cfg, b, max_t, device=DEV)
+    lg, cache, _ = block_prefill(params, cfg, cache, prompt)
+    toks = []
+    for i in range(steps):
+        if i:
+            lg, cache = decode_step(params, cfg, cache, t0 + i - 1, toks[-1])
+        logits[i].copy_(lg)
+        toks.append(lg.argmax(-1).to(prompt.dtype))
+    out = torch.cat([prompt, torch.stack(toks, 1)], 1)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start, logits
+
+
+def _profile_decode(params, cfg, prompt, max_t, wall_step) -> float:
+    """Device time by kernel over PROFILED_DECODE_STEPS decode steps from
+    position t0 (the prefill outside the profile): issued eagerly by
+    ``decode_step``, then as replays of ``generate``'s captured step over
+    the same slots; the two device-busy times must agree. Returns the
+    eager steps' device-busy ms per step."""
+    b, t0 = prompt.shape
+    n = PROFILED_DECODE_STEPS
+    cache = init_kv_cache(cfg, b, max_t, device=DEV)
+    logits, cache, _ = block_prefill(params, cfg, cache, prompt)
+    tok = logits.argmax(-1).to(torch.int32)
+
+    def steps():
+        for i in range(n):
+            decode_step(params, cfg, cache, t0 + i, tok)
+
+    eager = _profile_step(steps, 1e3 * wall_step * n, DECODE_KERNEL_GROUPS,
+                          f"{n} decode steps from position {t0}, eager")
+    out = torch.zeros((b, t0 + n + 3), dtype=torch.int32, device=DEV)
+    out[:, t0] = tok
+    pos = torch.zeros((), dtype=torch.int32, device=DEV)
+    step = StepGraph(_step_body(params, cfg, cache, out, pos,
+                                lambda lg: lg.argmax(-1).to(torch.int32)),
+                     DEV)
+    pos.fill_(t0)
+    step()                                   # warm-up
+    step()                                   # capture and first replay
+    pos.fill_(t0)
+
+    def replays():
+        for _ in range(n):
+            step()
+
+    graphed = _profile_step(replays, 1e3 * wall_step * n,
+                            DECODE_KERNEL_GROUPS,
+                            f"{n} decode steps from position {t0}, replays "
+                            f"of the captured step")
+    ratio = graphed / eager if eager and graphed else float("nan")
+    print(f"  replayed over eager device-busy time: {ratio:.4f} "
+          f"(allowed {DEVICE_STEP_RATIO})")
+    if not DEVICE_STEP_RATIO[0] <= ratio <= DEVICE_STEP_RATIO[1]:
+        raise AssertionError("the profiler does not see the replayed "
+                             "steps' kernels as it sees the eager ones")
+    return eager / n
 
 
 def full_width_generation_phase(card: str) -> int:
@@ -1318,6 +1519,7 @@ def full_width_generation_phase(card: str) -> int:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             da.flash_decode_attention.launches = 0
+            StepGraph.captures, StepGraph.capture_seconds = 0, 0.0
             start = time.perf_counter()
             with no_device_waits():
                 outs[n] = generate(params, cfg, prompt, steps=n,
@@ -1325,48 +1527,62 @@ def full_width_generation_phase(card: str) -> int:
             torch.cuda.synchronize()
             walls[n] = time.perf_counter() - start
             launches = da.flash_decode_attention.launches
+            captures, capture_s = StepGraph.captures, StepGraph.capture_seconds
         peak = torch.cuda.max_memory_allocated()
         wall_step = (walls[long_] - walls[short]) / (long_ - short)
         dev_step = r["decode_step_ms"] / 1e3
         idle = 1.0 - dev_step * long_ / walls[long_]
         out = outs[long_]
         expect = cfg.n_layers * (long_ - 1)
+        eager, eager_wall, eager_logits = _eager_chain(params, cfg, prompt,
+                                                       long_, t0 + long_)
+        parts = _partings(out[:, t0:].cpu(), eager[:, t0:].cpu(),
+                          eager_logits)
+        del eager_logits
         print(f"{card}, {name}: {r['decode_tokens_per_sec']:.1f} tokens/s by "
               f"device time ({r['decode_step_ms']:.3f} ms/step, the long "
               f"chain's device-busy time over its {long_} steps), "
               f"{b / wall_step:.1f} tokens/s wall ({1e3 * wall_step:.3f} "
               f"ms/step, marginal between {short} and {long_} steps); long "
-              f"chain {walls[long_]:.2f} s wall, card idle "
-              f"{100 * idle:.1f}% of it; params {r['param_mib']:.1f} MiB; "
-              f"peak memory {peak / 2**30:.2f} GiB; B5 launches {launches} "
-              f"(expected {expect}); {time.perf_counter() - t_start:.1f} s")
+              f"chain {walls[long_]:.3f} s wall, card idle "
+              f"{100 * idle:.1f}% of it; {captures} CUDA graph captured in "
+              f"{1e3 * capture_s:.1f} ms per call, apart from the steps, "
+              f"under sync-debug mode with its replays (no host wait); "
+              f"params {r['param_mib']:.1f} MiB; peak memory "
+              f"{peak / 2**30:.2f} GiB; B5 launches {launches}, counted per "
+              f"replay (expected {expect}); {time.perf_counter() - t_start:.1f} s")
+        print(f"  the same long chain by the eager step, issued from the host: "
+              f"{eager_wall:.3f} s wall, {1e3 * eager_wall / long_:.3f} "
+              f"ms/step, prefill included; the eager loop's figures "
+              f"(PERF.md): {EAGER_LOOP}; replayed tokens equal to the eager ones: "
+              f"{not parts}"
+              + "".join(f"; row {r_} parts at step {j} ({sl:.2e} of the "
+                        f"largest |logit| below the eager top)"
+                        for r_, j, sl in parts))
         if out.shape != (b, t0 + long_) or not bool(
                 ((out >= 0) & (out < cfg.vocab)).all()):
             raise AssertionError(f"{name}: malformed generation output")
         if not torch.equal(outs[short], out[:, :t0 + short]):
             raise AssertionError(f"{name}: the short chain's tokens are not "
                                  f"a prefix of the long chain's")
-        if launches != expect:
+        if any(sl > TOL_TIE_REL for _, _, sl in parts):
+            raise AssertionError(f"{name}: the replayed chain parts from the "
+                                 f"eager one where no near-tie is")
+        if launches != expect or captures != 1:
             raise AssertionError(f"{name}: B5 launched {launches} times per "
-                                 f"generate call, expected {expect}")
+                                 f"generate call, expected {expect}, or "
+                                 f"{captures} captures, expected 1")
         if bf16_launches is None:
             bf16_launches = launches
-            # device time by kernel over PROFILED_DECODE_STEPS decode
-            # steps from position t0 (the prefill outside the profile)
-            cache = init_kv_cache(cfg, b, t0 + long_, device=DEV)
-            logits, cache, _ = block_prefill(params, cfg, cache, prompt)
-            tok = logits.argmax(-1).to(torch.int32)
-
-            def steps():
-                for i in range(PROFILED_DECODE_STEPS):
-                    decode_step(params, cfg, cache, t0 + i, tok)
-
-            _profile_step(steps, 1e3 * wall_step * PROFILED_DECODE_STEPS,
-                          DECODE_KERNEL_GROUPS,
-                          f"{PROFILED_DECODE_STEPS} decode steps from "
-                          f"position {t0}")
-            del cache, logits
-        del params, outs, out
+            eager_ms = _profile_decode(params, cfg, prompt, t0 + long_,
+                                       wall_step)
+            ratio = r["decode_step_ms"] / eager_ms
+            print(f"  the replayed long chain's device ms/step over the "
+                  f"eager steps': {ratio:.4f} (allowed {DEVICE_STEP_RATIO})")
+            if not DEVICE_STEP_RATIO[0] <= ratio <= DEVICE_STEP_RATIO[1]:
+                raise AssertionError("the device-time rate of the replayed "
+                                     "chain does not match the eager steps")
+        del params, outs, out, eager
         torch.cuda.empty_cache()
     return bf16_launches
 
@@ -1491,11 +1707,12 @@ DECODE_KERNEL_GROUPS = (
 
 
 def _profile_step(run_step, step_ms: float, groups=KERNEL_GROUPS,
-                  what: str = "step") -> None:
+                  what: str = "step") -> Optional[float]:
     """Device time by kernel over one more run of ``run_step`` (a
     training step, or ``what``) under ``torch.profiler``, grouped as in
     ``groups`` (everything else is elementwise, reductions and copies),
-    against its timed wall time ``step_ms``."""
+    against its timed wall time ``step_ms``; returns the device-busy ms
+    (None when the profiler recorded none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1510,7 +1727,7 @@ def _profile_step(run_step, step_ms: float, groups=KERNEL_GROUPS,
     if not kernels:
         print("profiled step: the profiler recorded no device time "
               "(breakdown not measured)")
-        return
+        return None
     busy = sum(ms for _, ms, _ in kernels)
     shares = {name: 0.0 for name, _ in groups}
     shares["other (elementwise, reductions, copies)"] = 0.0
@@ -1526,6 +1743,7 @@ def _profile_step(run_step, step_ms: float, groups=KERNEL_GROUPS,
         print(f"  {name}: {ms:.2f} ms ({100 * ms / busy:.1f}% of busy)")
     for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}")
+    return busy
 
 
 def full_width_training_phase(card: str, flash: dict) -> dict:

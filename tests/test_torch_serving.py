@@ -211,7 +211,7 @@ def test_failed_decode_poisons_engine(monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("device fault")
 
-    monkeypatch.setattr(ts, "paged_decode_steps", boom)
+    monkeypatch.setattr(ts, "_decode_core", boom)
     with pytest.raises(RuntimeError, match="device fault"):
         eng.step_chunk()
     with pytest.raises(RuntimeError, match="poisoned"):

@@ -70,6 +70,7 @@ constexpr int kRowBlock = 8;                   // q rows per register block
 constexpr int kPad = 16;                       // bytes of padding per row
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;                // per-device flags of launch()
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
@@ -395,11 +396,21 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(rep, hd);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // the shared-memory limit is raised once per device, to the most any
+  // launch can ask for, at the first launch that needs it: a launch
+  // captured into a CUDA graph then makes no call but the launch itself
+  static bool raised[kMaxDevices] = {};
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_split_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
+    if (!(dev < kMaxDevices && raised[dev])) {
+      e = cudaFuncSetAttribute(paged_decode_split_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMaxSmem);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < kMaxDevices) raised[dev] = true;
+    }
   }
   paged_decode_split_kernel<T><<<dim3(h_kv, b, n_split), kThreads, smem,
                                  stream>>>(

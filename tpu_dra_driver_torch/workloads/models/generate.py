@@ -9,9 +9,12 @@ decode-throughput benchmark.
 
 Unlike the reference, cache writes update the cache tensors in place
 (the returned cache holds the same tensors): no step copies a whole
-cache. Positions are Python ints known on the host, and the decode loop
-of :func:`generate` never waits for the device: its picks stay on the
-card and are joined once at the end.
+cache. A position is a Python int or a 0-d int32 tensor; a tensor is
+never read on the host, so a step at a device position can be captured
+in a CUDA graph. :func:`generate` runs its decode loop (and the ring
+prefill) as one such graph, replayed once per step (the reference jits
+the whole loop): the position, the fed-back token and the output live
+on the card, and the host never waits for it.
 
 The g = 1 decode read goes through ``flash_decode_attention`` (kernel B5
 on the card) where the cache length has a KV_BLOCK-multiple divisor;
@@ -44,6 +47,7 @@ from tpu_dra_driver_torch.workloads.ops.attention import attention_reference
 from tpu_dra_driver_torch.workloads.ops.decode_attention import (
     NEG_INF, decode_block_t, flash_decode_attention, round_up_kv,
 )
+from tpu_dra_driver_torch.workloads.utils.graphs import StepGraph
 from tpu_dra_driver_torch.workloads.utils.timing import (
     chain_seconds_per_step,
 )
@@ -86,22 +90,31 @@ def _kv_quantize(vals: torch.Tensor):
 
 
 def _cache_write(cache: Dict, which: str, li: int, vals: torch.Tensor,
-                 slot: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Write [b, h_kv, g, hd] vectors at ``slot`` in place; returns the
-    (codes-or-values tensor, scales tensor or None)."""
+                 slot) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Write [b, h_kv, g, hd] vectors in place at slots ``slot`` to
+    ``slot + g`` (an int), or at the g slots of an int64 tensor on the
+    cache's device (a device position, the reference's traced
+    ``dynamic_update_slice``); returns the (codes-or-values tensor,
+    scales tensor or None)."""
     arr = cache[which][li]
-    g = vals.shape[2]
+
+    def write(dst, src):
+        if isinstance(slot, torch.Tensor):
+            dst.index_copy_(2, slot, src)
+        else:
+            dst[:, :, slot:slot + src.shape[2]] = src
+
     if which + "_s" in cache:
         codes, s = _kv_quantize(vals)
-        arr[:, :, slot:slot + g] = codes
+        write(arr, codes)
         arr_s = cache[which + "_s"][li]
-        arr_s[:, :, slot:slot + g] = s
+        write(arr_s, s)
         return arr, arr_s
-    arr[:, :, slot:slot + g] = vals.to(arr.dtype)
+    write(arr, vals.to(arr.dtype))
     return arr, None
 
 
-def _decode_attention(q, k_cache, v_cache, pos: int, k_scale=None,
+def _decode_attention(q, k_cache, v_cache, pos, k_scale=None,
                       v_scale=None):
     """The reference's masked read, in plain torch ops: q [b, h, g, hd]
     against the cache [b, h_kv, L, hd], block row i seeing ``slot <= pos
@@ -218,9 +231,11 @@ def chunked_prefill(params: Params, cfg: ModelConfig, cache: Dict,
 
 
 def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
-              pos: int, toks: torch.Tensor):
+              pos, toks: torch.Tensor):
     """Multi-token decode step: ``toks`` [b, g] at positions [pos, pos+g)
-    → (logits [b, g, vocab], cache), the cache written in place.
+    → (logits [b, g, vocab], cache), the cache written in place. ``pos``
+    is an int or a 0-d int32 tensor on the cache's device, which no part
+    of the step reads on the host.
 
     g = 1 is the ordinary decode step; its write slot wraps at the cache
     length (a ring). g > 1 is the wide-verify forward and needs the
@@ -249,7 +264,15 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
 
     x = embed_lookup(params["embed"], toks, cfg.dtype)           # [b,g,d]
     if not cfg.use_rope:
-        x = x + params["pos_embed"][pos:pos + g][None]
+        rows = pos + torch.arange(g, device=x.device)
+        x = x + params["pos_embed"].index_select(0, rows)[None]
+
+    # ring write (g = 1 only): slot = pos % L is the identity while pos <
+    # L (the full-length cache) and wraps only in ring mode; a device
+    # position becomes the g slots' indices, once per step
+    slot = pos % length if g == 1 else pos
+    if isinstance(slot, torch.Tensor):
+        slot = slot + torch.arange(g, device=slot.device)
 
     params = unstack_layer_params(params)
     new_k, new_v, new_ks, new_vs = [], [], [], []
@@ -263,9 +286,6 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
         if cfg.use_rope:
             q = apply_rope(q, pos0=pos)
             k = apply_rope(k, pos0=pos)
-        # ring write (g = 1 only): slot = pos % L is the identity while
-        # pos < L (the full-length cache) and wraps only in ring mode
-        slot = pos % length if g == 1 else pos
         k_cache, k_s = _cache_write(cache, "k", li, k, slot)
         v_cache, v_s = _cache_write(cache, "v", li, v, slot)
         new_k.append(k_cache)
@@ -292,9 +312,10 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
-                pos: int, token: torch.Tensor):
-    """One token step: token [b] at position ``pos`` → (logits [b,
-    vocab], cache). The g = 1 case of :func:`wide_step`."""
+                pos, token: torch.Tensor):
+    """One token step: token [b] at position ``pos`` (an int or a 0-d
+    int32 tensor) → (logits [b, vocab], cache). The g = 1 case of
+    :func:`wide_step`."""
     logits, cache = wide_step(params, cfg, cache, pos, token[:, None])
     return logits[:, 0], cache
 
@@ -374,8 +395,10 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
     bidirectional (default: ``cfg.prefix > 0``).
 
     The cache is written in place, one slot a step. The decode loop
-    never waits for the device: each pick stays on the card and the
-    tokens are joined once at the end."""
+    (and the ring prefill) is :func:`_step_body` run once per step by a
+    :class:`StepGraph`: replays of one CUDA graph on the card, the body
+    itself on the CPU. The position, the fed-back token and the output
+    stay on the prompt's device, and the host never waits for it."""
     if steps <= 0:
         return prompt
     if temperature < 0:
@@ -409,7 +432,11 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
             raise ValueError(f"prompt length {t0} must divide "
                              f"into chunks of {prefill_chunk}")
     temperature = float(temperature)
-    cache = init_kv_cache(cfg, b, max_t, device=prompt.device)
+    dev = prompt.device
+    cache = init_kv_cache(cfg, b, max_t, device=dev)
+    out = torch.empty((b, t0 + steps), dtype=prompt.dtype, device=dev)
+    out[:, :t0] = prompt
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
 
     def pick(logits):
         if temperature == 0:
@@ -424,24 +451,47 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
 
     if cfg.window > 0:
         # ring cache: fill one slot at a time (the wrap layout is
-        # positional)
-        last_logits = torch.zeros((b, cfg.vocab), device=prompt.device)
-        for pos in range(t0):
-            last_logits, cache = decode_step(params, cfg, cache, pos,
-                                             prompt[:, pos])
-    elif prefill_chunk is not None:
-        last_logits, cache, _ = chunked_prefill(params, cfg, cache, prompt,
-                                                prefill_chunk)
+        # positional), the token of each step read from the prompt
+        prefill = StepGraph(_step_body(params, cfg, cache, out, pos), dev)
+        for _ in range(t0):
+            last_logits = prefill()
     else:
-        last_logits, cache, _ = block_prefill(params, cfg, cache, prompt,
-                                              prefix_lm=prefix_lm)
-    tok = pick(last_logits)
-    out = [tok]
-    for pos in range(t0, t0 + steps - 1):
-        logits, cache = decode_step(params, cfg, cache, pos, tok)
-        tok = pick(logits)
-        out.append(tok)
-    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+        if prefill_chunk is not None:
+            last_logits, cache, _ = chunked_prefill(params, cfg, cache,
+                                                    prompt, prefill_chunk)
+        else:
+            last_logits, cache, _ = block_prefill(params, cfg, cache,
+                                                  prompt,
+                                                  prefix_lm=prefix_lm)
+        pos.fill_(t0)
+    out[:, t0] = pick(last_logits)
+    step = StepGraph(_step_body(params, cfg, cache, out, pos, pick), dev,
+                     generator=generator if temperature > 0 else None)
+    for _ in range(steps - 1):
+        step()
+    return out
+
+
+def _step_body(params: Params, cfg: ModelConfig, cache: Dict,
+               out: torch.Tensor, pos: torch.Tensor, pick=None):
+    """One step of :func:`generate` as a function of no arguments, for
+    :class:`StepGraph`: it reads the position ``pos`` (0-d int32) and the
+    token ``out[:, pos]`` from their tensors, decodes it into the cache
+    and advances ``pos`` by one in place, and returns the logits. With
+    ``pick`` (logits → tokens) it also writes the picked tokens to
+    ``out[:, pos + 1]``; without it (the ring prefill, whose tokens are
+    the prompt's) ``out`` is only read."""
+
+    def body():
+        tok = out.index_select(1, pos.view(1))[:, 0]
+        logits, _ = decode_step(params, cfg, cache, pos, tok)
+        if pick is not None:
+            nxt = (pos + 1).long().view(1)
+            out.index_copy_(1, nxt, pick(logits)[:, None])
+        pos.add_(1)
+        return logits
+
+    return body
 
 
 @torch.no_grad()

@@ -11,7 +11,11 @@ and finished requests free their blocks.
   pools and read them through ``paged_decode_attention`` (the CUDA
   kernel on the card);
 - host (``ServingEngine``): block allocation, table/lens bookkeeping,
-  admission, completion.
+  admission, completion. Its decode steps are :meth:`_step_body`, one
+  CUDA graph per ``n_live_blocks`` bucket replayed once per step on the
+  card (the reference scans ``paged_decode_steps`` in one dispatch), the
+  body itself on the CPU: tables, lens, tokens and the chunk's output
+  live in static device buffers, copied in once and out once per chunk.
 
 The pools are updated in place (the reference donates them to each jit
 call instead), so a call that fails part-way leaves them in an unknown
@@ -49,6 +53,7 @@ from tpu_dra_driver_torch.workloads.ops.paged_attention import (
     paged_decode_attention,
     pool_append,
 )
+from tpu_dra_driver_torch.workloads.utils.graphs import StepGraph
 from tpu_dra_driver_torch.workloads.utils.timing import (
     device_seconds_total,
     time_fn,
@@ -197,8 +202,26 @@ class ServingEngine:
             self.pool_ks.append(pk)
             self.pool_vs.append(pv)
         self.free = list(range(n_blocks - 1, 0, -1))   # block 0 = null
-        self.tables = np.zeros((max_batch, max_blocks_per_seq), np.int32)
-        self.lens = np.zeros((max_batch,), np.int32)
+        # the host's tables, lens and pending tokens, in pinned memory on
+        # a card so that a chunk's copies to the device do not wait, and
+        # their static device copies, which the step graphs read
+        cuda = self.device.type == "cuda"
+        self._host = {
+            "tables": torch.zeros((max_batch, max_blocks_per_seq),
+                                  dtype=torch.int32, pin_memory=cuda),
+            "lens": torch.zeros((max_batch,), dtype=torch.int32,
+                                pin_memory=cuda),
+            "tokens": torch.zeros((max_batch,), dtype=torch.int32,
+                                  pin_memory=cuda)}
+        self.tables = self._host["tables"].numpy()
+        self.lens = self._host["lens"].numpy()
+        self._dev = {k: torch.zeros_like(v, device=self.device)
+                     for k, v in self._host.items()}
+        self._out = torch.zeros((max_batch, max(self.CHUNK_SIZES)),
+                                dtype=torch.int32, device=self.device)
+        self._col = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._steps: Dict[int, StepGraph] = {}
         self.rows: List[Optional[_Request]] = [None] * max_batch
         self._next_rid = 0
         self.finished: Dict[int, List[int]] = {}
@@ -284,6 +307,54 @@ class ServingEngine:
         return req.rid
 
     # -- stepping --------------------------------------------------------
+    def _step_body(self, n_live_blocks: int):
+        """One decode step of every row as a function of no arguments,
+        for :class:`StepGraph`: it reads the tables, lens and tokens from
+        their device buffers, appends to the pools, writes the argmax to
+        column ``_col`` of ``_out`` and feeds it back, and advances lens
+        and ``_col`` by one, all in place."""
+        # the body holds the engine's tensors, not the engine: a graph
+        # kept in the engine must not keep the engine alive in a cycle
+        params, cfg, pool_ks, pool_vs = (self.params, self.cfg,
+                                         self.pool_ks, self.pool_vs)
+        d, out, col = self._dev, self._out, self._col
+
+        def body():
+            logits, _, _ = _decode_core(
+                params, cfg, pool_ks, pool_vs, d["tables"], d["lens"],
+                d["tokens"], n_live_blocks=n_live_blocks)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.index_copy_(1, col.view(1), nxt[:, None])
+            d["tokens"].copy_(nxt)
+            d["lens"].add_(1)
+            col.add_(1)
+
+        return body
+
+    def _decode(self, active: List[_Request], k: int) -> np.ndarray:
+        """``k`` greedy decode steps of every row: the host arrays copied
+        to the device once, the step of the ``n_live_blocks`` bucket run
+        k times, the [max_batch, k] tokens copied back once. Any
+        exception poisons the engine."""
+        try:
+            self._host["tokens"].numpy()[:] = self._pending_tokens(active)
+            for name, buf in self._dev.items():
+                buf.copy_(self._host[name], non_blocking=True)
+            self._col.zero_()
+            n_live = self._live_blocks_bucket(k)
+            step = self._steps.get(n_live)
+            if step is None:
+                step = self._steps[n_live] = StepGraph(
+                    self._step_body(n_live), self.device,
+                    pool=self._graph_pool)
+            for _ in range(k):
+                step()
+            return self._out[:, :k].cpu().numpy()
+        except BaseException:
+            self._poisoned = ("decode failed while appending to the pools; "
+                              "engine state is unrecoverable")
+            raise
+
     def _pending_tokens(self, active: List[_Request]) -> np.ndarray:
         tokens = np.zeros((len(self.rows),), np.int32)
         for r in active:
@@ -291,62 +362,24 @@ class ServingEngine:
         return tokens
 
     def step(self) -> Dict[int, int]:
-        """One batched decode step; returns {rid: new_token} for rows
-        that produced one. No-op on an idle engine."""
-        self._check_alive()
-        active = [r for r in self.rows if r is not None]
-        if not active:
-            return {}
-        tokens = self._pending_tokens(active)
-        try:
-            logits, self.pool_ks, self.pool_vs = paged_decode_step(
-                self.params, self.cfg, self.pool_ks, self.pool_vs,
-                self._to_device(self.tables), self._to_device(self.lens),
-                self._to_device(tokens),
-                n_live_blocks=self._live_blocks_bucket(1))
-            picked = torch.argmax(logits, dim=-1).cpu().numpy()
-        except BaseException:
-            self._poisoned = ("decode step failed while appending to the "
-                              "pools; engine state is unrecoverable")
-            raise
-        out: Dict[int, int] = {}
-        for r in active:
-            self.lens[r.row] += 1
-            tok = int(picked[r.row])
-            r.tokens.append(tok)
-            r.pending = tok
-            r.remaining -= 1
-            out[r.rid] = tok
-            if r.remaining == 0:
-                self._finish(r)
-        return out
+        """One batched decode step (``step_chunk``'s k = 1 case); returns
+        {rid: new_token} for rows that produced one. No-op on an idle
+        engine."""
+        return {rid: toks[0] for rid, toks in self.step_chunk(1).items()}
 
     def step_chunk(self, max_steps: int = 32) -> Dict[int, List[int]]:
         """Up to ``max_steps`` decode steps with the argmax fed back on the
         device. The chunk length is the largest of CHUNK_SIZES <=
         min(max_steps, min remaining over active rows), so no row appends
-        past its allocation or finishes mid-chunk; a bound of 1 takes
-        step(). Returns {rid: new tokens}."""
+        past its allocation or finishes mid-chunk; a bound below 2 takes
+        one step. Returns {rid: new tokens}."""
         self._check_alive()
         active = [r for r in self.rows if r is not None]
         if not active:
             return {}
         bound = min(max_steps, min(r.remaining for r in active))
         k = next((c for c in self.CHUNK_SIZES if c <= bound), 1)
-        if k <= 1:
-            return {rid: [tok] for rid, tok in self.step().items()}
-        tokens = self._pending_tokens(active)
-        try:
-            toks, self.pool_ks, self.pool_vs = paged_decode_steps(
-                self.params, self.cfg, self.pool_ks, self.pool_vs,
-                self._to_device(self.tables), self._to_device(self.lens),
-                self._to_device(tokens), n_steps=k,
-                n_live_blocks=self._live_blocks_bucket(k))
-            toks = toks.cpu().numpy()
-        except BaseException:
-            self._poisoned = ("decode chunk failed while appending to the "
-                              "pools; engine state is unrecoverable")
-            raise
+        toks = self._decode(active, k)
         out: Dict[int, List[int]] = {}
         for r in active:
             got = [int(t) for t in toks[r.row]]

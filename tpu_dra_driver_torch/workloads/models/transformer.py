@@ -167,25 +167,25 @@ def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, pos0=0, theta: float = 10000.0
                ) -> torch.Tensor:
     """Rotary embedding on [b, h, t, hd] (split-half rotation, fp32).
-    ``pos0`` is a scalar start position or a [b] tensor of per-sequence
-    positions (ragged continuous-batching decode)."""
+    ``pos0`` is a scalar start position (an int, or a 0-d tensor), or a
+    [b] tensor of per-sequence positions (ragged continuous-batching
+    decode). A tensor is never read on the host: the positions are made
+    on its device, exactly (integers below 2^24 are exact in f32)."""
     b, h, t, hd = x.shape
     dev = x.device
     half = torch.arange(0, hd // 2, dtype=torch.float32, device=dev)
     inv_freq = 1.0 / (theta ** (half / (hd // 2)))
-    if isinstance(pos0, torch.Tensor) and pos0.ndim == 1:
-        # per-sequence positions [b]
-        steps = torch.arange(t, dtype=torch.float32, device=dev)
-        ang = (pos0.float()[:, None] + steps)[:, :, None] * inv_freq
-        cos = torch.cos(ang)[:, None]                        # [b,1,t,hd/2]
-        sin = torch.sin(ang)[:, None]
+    if isinstance(pos0, torch.Tensor):
+        pos = pos0.float()[..., None] + torch.arange(
+            t, dtype=torch.float32, device=dev)              # [t] or [b, t]
     else:
-        # positions made on the device: copying a host number there
-        # would wait for the device
+        # made on the device: copying a host number there would wait
+        # for the device
         pos = torch.arange(pos0, pos0 + t, dtype=torch.float32, device=dev)
-        ang = pos[:, None] * inv_freq                        # [t,hd/2]
-        cos = torch.cos(ang)[None, None]
-        sin = torch.sin(ang)[None, None]
+    ang = pos[..., None] * inv_freq                 # [t, hd/2] or [b, t, hd/2]
+    ang = ang[:, None] if ang.dim() == 3 else ang[None, None]
+    cos = torch.cos(ang)
+    sin = torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -115,7 +115,9 @@ def _check(q, k_cache, v_cache, pos, k_scale, v_scale, block_t):
                              f"got {pos.dtype} {tuple(pos.shape)}")
         if pos.device.type != "cpu":
             return pos
-        pos = int(pos.reshape(()))
+        # a CPU tensor is host memory: read through numpy, which takes
+        # no device value (a CUDA pos is never read, above)
+        pos = int(pos.numpy().reshape(()))
     pos = operator.index(pos)
     if pos < 0:
         raise ValueError(f"pos must be >= 0, got {pos}")
