@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``tpu_dra_driver_torch``).
 
-Drives the port's serving, generation and training paths on one CUDA
-card and checks them; imports no JAX. Phases, each of which fails the
+Drives the port's serving, generation and training paths, and the
+mixture-of-experts, Adafactor, LoRA and masked-LM encoder paths, on one
+CUDA card and checks them; imports no JAX. Phases, each of which fails the
 run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
@@ -74,7 +75,34 @@ run when it fails:
    timed steps, with B1-B3's launches counted over the timed steps, one
    more step under ``torch.profiler`` for its device time by kernel, and
    one of its blocks at b=1 on the card against the CPU;
-12. paged kernel per launch: B4's split and merge kernels timed apart
+12. MoE, Adafactor, LoRA and MLM parity: in fp32 on the card and on the
+   CPU from one seed, the loss and gradients of a top-2 and a dense
+   mixture of experts and of the MLM encoder (given one corruption),
+   three Adafactor steps of the top-2 model and three AdamW steps of
+   LoRA adapters (the base left bit-identical); two MLM steps on the
+   card drawing their corruption from a CUDA generator; the MoE engine
+   and MoE ``generate`` (float and int8 expert banks, replays under
+   sync-debug mode) giving the CPU's greedy tokens;
+13. MLM: B1-B3 at the bidirectional full-width shape (prefix = t, every
+   pair visible), held row by row against an f32 reference with a tile
+   left out shown to break that allowance, timed against their plain
+   versions and SDPA without a causal mask; then three timed MLM steps
+   of the encoder (the training configuration with prefix = max_seq),
+   B1-B3's launches counted;
+14. LoRA: rank-16 adapters on the training configuration's attention
+   projections, three timed AdamW steps, the base bit-identical after;
+15. MoE generation: the generation configuration with 8 experts, top-2
+   (Mixtral 8x7B's routing), bf16; the 32- and 1056-step chains as
+   replays (wall rate, idle share, capture time, B5 launches), the long
+   chain's device time, and the long chain by the eager step (tokens
+   equal, or parting at a near-tie);
+16. MoE training: the training configuration with the same routing and
+   capacity factor 1.25, Adafactor, from the generation phase's params;
+   one untimed and three timed steps (B1-B3 launches counted, model
+   TFLOP/s over the active parameters), then one more step under
+   ``torch.profiler`` split into flash, cuBLAS, the MoE's products, its
+   routing and the optimizer;
+17. paged kernel per launch: B4's split and merge kernels timed apart
    under ``torch.profiler`` at phase 3's serving read. Every use of the
    profiler follows the wall-clock readings of its phase.
 
@@ -88,6 +116,7 @@ Run from the repo root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -102,6 +131,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dra_driver_torch import entry
+from tpu_dra_driver_torch.workloads.models import encoder as enc
+from tpu_dra_driver_torch.workloads.models import lora
 from tpu_dra_driver_torch.workloads.models import transformer as tt
 from tpu_dra_driver_torch.workloads.models.generate import (
     _step_body, block_prefill, chunked_prefill, decode_step,
@@ -118,6 +149,7 @@ from tpu_dra_driver_torch.workloads.ops import _build
 from tpu_dra_driver_torch.workloads.ops import attention as fa
 from tpu_dra_driver_torch.workloads.ops import decode_attention as da
 from tpu_dra_driver_torch.workloads.ops import paged_attention as pa
+from tpu_dra_driver_torch.workloads.utils import timing
 from tpu_dra_driver_torch.workloads.utils.graphs import StepGraph
 
 DEV = "cuda"
@@ -305,6 +337,29 @@ GEN_FULL_VARIANTS = {"bf16": (False, False),
 # random N(0, 0.02) weights, tied head: logits of variance ~ d * 0.02^2,
 # so the first loss is about ln(8192) + 0.4 = 9.4
 FIRST_LOSS_RANGE = (8.5, 10.5)
+# MoE, Adafactor, LoRA and MLM on the card against the CPU in fp32: the
+# small training configuration with four experts, two a token (its
+# widths, 128 and 256, make Adafactor factor the projections and the
+# expert banks), and the engine's configuration with the same routing
+SMALL_MOE = replace(SMALL_TRAIN, n_experts=4, moe_top_k=2)
+SMALL_MOE_GEN = replace(SMALL, n_experts=4, moe_top_k=2)
+SMALL_LORA_RANK = 4
+# card vs CPU gradients in fp32, relative to each leaf's largest: cuBLAS,
+# the f32 flash kernels and the CPU's plain versions sum in other orders
+TOL_GRAD_REL = 1e-4
+# the full-width MoE configurations: the training and generation cells'
+# widths with Mixtral 8x7B's routing, 8 experts and 2 a token (Jiang et
+# al. 2024, arXiv:2401.04088), capacity factor 1.25 (C = 640 a row at
+# t = 2048)
+FULL_MOE_TRAIN = replace(FULL_TRAIN, n_experts=8, moe_top_k=2,
+                         moe_capacity_factor=1.25)
+FULL_MOE_GEN = replace(GEN_FULL, n_experts=8, moe_top_k=2,
+                       moe_capacity_factor=1.25)
+# LoRA at full width: rank 16 on the attention projections
+LORA_RANK = 16
+# profiler ranges the MoE step's split attributes kernels by
+MOE_RANGE, BLOCK_RANGE, OPT_RANGE = "smoke:moe", "smoke:block", "smoke:opt"
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "wgmma")
 
 
 def phase(name: str) -> None:
@@ -824,7 +879,7 @@ def _flash_f32_reference(q, k, v, dout, g_lse, mask=None):
     return ref, (q32, k32, v32, do32, lse, dd)
 
 
-def _tile_omission(allow, operands, row0, col0, n):
+def _tile_omission(allow, operands, row0, col0, n, mask=None):
     """{output: the largest error over its allowance (``allow``, per
     row) in the rows that the n x n tile (q rows row0.., KV columns
     col0..) touches, with that tile left out of every sum}: what a
@@ -836,7 +891,9 @@ def _tile_omission(allow, operands, row0, col0, n):
     kr = k32[:, :, cols].repeat_interleave(rep, dim=1)
     vr = v32[:, :, cols].repeat_interleave(rep, dim=1)
     qt, dot = q32[:, :, rows], do32[:, :, rows]
-    vis = fa._visible(t, t, True, None, 0, None, q32.device)[rows][:, cols]
+    mask = mask or {}
+    vis = fa._visible(t, t, True, None, 0, mask.get("prefix"),
+                      q32.device)[rows][:, cols]
     s = torch.einsum("bhid,bhjd->bhij", qt, kr) / math.sqrt(d)
     p = torch.where(vis, torch.exp(s - lse[:, :, rows, None]), 0.0)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dot, vr)
@@ -907,41 +964,30 @@ def _flash_bf16_case(name, shape, mask, gen) -> None:
     _check_empty_rows(pairs, empty, f"bf16 {name}")
 
 
-def flash_phase(gen) -> dict:
-    # every mask form, f32
-    for name, (shape, mask) in FLASH_CASES.items():
-        q, k, v, dout, g_lse = _flash_inputs(shape, torch.float32, gen)
-        pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
-        errs = _errors(pairs)
-        print(f"f32 {name} {shape} {mask}: " + ", ".join(
-            f"{o} {e:.2e}" for o, (e, _) in errs.items()))
-        for o, (e, top) in errs.items():
-            if not e <= TOL_FLASH_F32 * max(1.0, top):
-                raise AssertionError(f"flash {o} disagrees in f32 case "
-                                     f"{name}: {e} (largest {top})")
-        _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
-
-    # every mask form, bf16
-    for name, (shape, mask) in FLASH_BF16_CASES.items():
-        _flash_bf16_case(name, shape, mask, gen)
-    torch.cuda.empty_cache()
-
-    # the training shapes, bf16
+def _flash_full_width(gen, mask: dict) -> dict:
+    """B1-B3 at the full-width training shapes in bf16 under ``mask``
+    (causal when empty, bidirectional with ``prefix`` = t): every output
+    row against the f32 reference within its allowance, a 64 x 64 tile
+    left out shown to break that allowance, then each kernel timed with
+    a cold L2 against its plain version, SDPA (causal or not, as the
+    mask) and its bound from this run's visible pairs."""
     b, h, h_kv, t, d = FLASH_FULL
     shape = (b, h, h_kv, t, t, d)
     q, k, v, dout, g_lse = _flash_inputs(shape, torch.bfloat16, gen)
     g_lse.zero_()                     # flash_attention's backward: no lse
-    pairs = _flash_pairs(q, k, v, dout, g_lse, {})
+    pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
     errs = _errors(pairs)
-    print(f"bf16 {shape} causal, kernel vs plain: " + ", ".join(
+    label = mask or "causal"
+    print(f"bf16 {shape} {label}, kernel vs plain: " + ", ".join(
         f"{o} {e:.2e} (largest {top:.2e})" for o, (e, top) in errs.items()))
     if not errs["lse"][0] <= TOL_FLASH_LSE:
         raise AssertionError(f"flash lse disagrees in bf16 at full width: "
                              f"{errs['lse'][0]} > {TOL_FLASH_LSE}")
-    ref, operands = _flash_f32_reference(q, k, v, dout, g_lse)
+    ref, operands = _flash_f32_reference(q, k, v, dout, g_lse, mask)
     outputs = ("out", "dq", "dk", "dv")
     allow = {o: _allowance(pairs[o][1], ref[o]) for o in outputs}
-    omitted = [_tile_omission(allow, operands, r0, c0, FLASH_MUTANT_TILE)
+    omitted = [_tile_omission(allow, operands, r0, c0, FLASH_MUTANT_TILE,
+                              mask)
                for r0, c0 in FLASH_MUTANT_TILES]
     del operands
     print("  worst row vs the f32 reference, relative to the row's largest "
@@ -967,33 +1013,37 @@ def flash_phase(gen) -> dict:
     # timings with a cold L2, bounds and library yardsticks
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=DEV)
-    out, lse = fa.flash_forward(q, k, v)
+    out, lse = fa.flash_forward(q, k, v, **mask)
     dd = (dout.float() * out.float()).sum(-1)
     args = (q, k, v, dout, lse, dd)
     ms = {
-        "flash_forward": time_ms(lambda: fa.flash_forward(q, k, v),
+        "flash_forward": time_ms(lambda: fa.flash_forward(q, k, v, **mask),
                                  flush=flush),
-        "flash_backward_dq": time_ms(lambda: fa.flash_backward_dq(*args),
-                                     flush=flush),
-        "flash_backward_dkv": time_ms(lambda: fa.flash_backward_dkv(*args),
-                                      flush=flush),
+        "flash_backward_dq": time_ms(
+            lambda: fa.flash_backward_dq(*args, **mask), flush=flush),
+        "flash_backward_dkv": time_ms(
+            lambda: fa.flash_backward_dkv(*args, **mask), flush=flush),
     }
     plain_ms = {
-        "flash_forward": time_ms(lambda: fa._flash_forward_plain(q, k, v),
-                                 iters=5, flush=flush),
+        "flash_forward": time_ms(
+            lambda: fa._flash_forward_plain(q, k, v, **mask), iters=5,
+            flush=flush),
         "flash_backward_dq": time_ms(
-            lambda: fa._flash_backward_dq_plain(*args), iters=5, flush=flush),
+            lambda: fa._flash_backward_dq_plain(*args, **mask), iters=5,
+            flush=flush),
         "flash_backward_dkv": time_ms(
-            lambda: fa._flash_backward_dkv_plain(*args), iters=5,
+            lambda: fa._flash_backward_dkv_plain(*args, **mask), iters=5,
             flush=flush),
     }
     torch.cuda.empty_cache()
     # yardsticks only (the port never calls them): SDPA's forward, and
-    # its backward, one time for dq, dk and dv together
+    # its backward, one time for dq, dk and dv together; causal, or over
+    # every pair when the prefix covers the sequence
+    causal = "prefix" not in mask
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), flush=flush)
+        q, k, v, is_causal=causal, enable_gqa=True), flush=flush)
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
                                              enable_gqa=True)
     lib_err = (lib_out.float() - out.float()).abs().max().item()
     lib_bwd = time_ms(lambda: torch.autograd.grad(
@@ -1004,7 +1054,7 @@ def flash_phase(gen) -> dict:
 
     # bounds from this run's inputs: each input read once, each output
     # written once; 4 d (B1), 6 d (B2), 8 d (B3) flops per visible pair
-    vis = fa._visible(t, t, True, None, 0, None, DEV)
+    vis = fa._visible(t, t, True, None, 0, mask.get("prefix"), DEV)
     pairs = b * h * int(vis.sum().item())
     qb, kvb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rowb = b * h * t * 4                              # lse or D, f32
@@ -1032,6 +1082,29 @@ def flash_phase(gen) -> dict:
     print(f"SDPA backward is one time for dq, dk and dv together; "
           f"max |SDPA out - B1 out| {lib_err:.2e}")
     return result
+
+
+def flash_phase(gen) -> dict:
+    # every mask form, f32
+    for name, (shape, mask) in FLASH_CASES.items():
+        q, k, v, dout, g_lse = _flash_inputs(shape, torch.float32, gen)
+        pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
+        errs = _errors(pairs)
+        print(f"f32 {name} {shape} {mask}: " + ", ".join(
+            f"{o} {e:.2e}" for o, (e, _) in errs.items()))
+        for o, (e, top) in errs.items():
+            if not e <= TOL_FLASH_F32 * max(1.0, top):
+                raise AssertionError(f"flash {o} disagrees in f32 case "
+                                     f"{name}: {e} (largest {top})")
+        _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
+
+    # every mask form, bf16
+    for name, (shape, mask) in FLASH_BF16_CASES.items():
+        _flash_bf16_case(name, shape, mask, gen)
+    torch.cuda.empty_cache()
+
+    # the training shapes, bf16
+    return _flash_full_width(gen, {})
 
 
 def _decode_inputs(shape, dtype, gen, int8=False):
@@ -1830,6 +1903,525 @@ def _to_cpu(node):
     return node.cpu()
 
 
+# ------------------------------------------- MoE, Adafactor, LoRA and MLM
+
+def _loss_and_grads(params, loss_of):
+    """(loss, gradients of every leaf of ``params``) of ``loss_of(params)``."""
+    leaves = [x.requires_grad_() for x in tt._param_leaves(params)]
+    loss = loss_of(params)
+    return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+
+def _check_grads(label, card, cpu) -> None:
+    """The loss within TOL_TRAIN_LOSS_REL and each gradient within
+    TOL_GRAD_REL of its leaf's largest |value|, card against CPU."""
+    loss_rel = abs(card[0].item() - cpu[0].item()) / abs(cpu[0].item())
+    worst = max(((a.float().cpu() - c.float()).abs().max()
+                 / c.float().abs().max().clamp_min(1e-30)).item()
+                for a, c in zip(card[1:], cpu[1:]))
+    print(f"  {label}: loss card {card[0].item():.6f}, cpu "
+          f"{cpu[0].item():.6f}; gradients, worst |card - cpu| over the "
+          f"leaf's largest {worst:.2e} (tolerance {TOL_GRAD_REL:.0e})")
+    if not loss_rel <= TOL_TRAIN_LOSS_REL or not worst <= TOL_GRAD_REL:
+        raise AssertionError(f"{label}: card and CPU losses or gradients "
+                             f"disagree")
+
+
+def _check_steps(label, card, cpu) -> None:
+    """Training steps, card against CPU: each loss within
+    TOL_TRAIN_LOSS_REL; each leaf after the steps within 1% of that
+    leaf's largest move on the CPU for all but 1% of its elements, and
+    within twice that move everywhere (an element whose gradient is near
+    zero may step either way, as Adam and Adafactor divide it by its own
+    RMS)."""
+    (c_losses, c_start, c_end), (p_losses, p_start, p_end) = card, cpu
+    c_losses, p_losses = c_losses.cpu().tolist(), p_losses.tolist()
+    worst, beyond, total = 0.0, 0, 0
+    for a, p, p0 in zip(c_end, p_end, p_start):
+        diff = (a.detach().float().cpu() - p.detach().float()).abs()
+        move = (p.detach().float() - p0.float()).abs().max().item()
+        worst = max(worst, diff.max().item() / max(move, 1e-30))
+        beyond += int((diff > 1e-2 * move).sum())
+        total += diff.numel()
+    print(f"  {label}: losses card {c_losses}, cpu {p_losses}; after the "
+          f"steps, worst |card - cpu| over the leaf's largest move "
+          f"{worst:.3f}, {beyond} of {total} elements beyond 1% of it")
+    if any(abs(a - c) > TOL_TRAIN_LOSS_REL * abs(c)
+           for a, c in zip(c_losses, p_losses)) \
+            or worst > 2.0 or beyond > 1e-2 * total:
+        raise AssertionError(f"{label}: card and CPU steps disagree")
+
+
+def _small_moe_lora_mlm(dev, batch, corruption) -> dict:
+    """Phase 12's runs on ``dev`` from seeded params."""
+    on = tuple(x.to(dev) for x in batch)
+    out = {}
+    for name, cfg in (("top-2 MoE", SMALL_MOE),
+                      ("dense MoE", replace(SMALL_MOE, moe_top_k=0))):
+        out[name] = _loss_and_grads(
+            init_params(cfg, 0, device=dev),
+            lambda p, cfg=cfg: tt.loss_fn(p, on, cfg, fa.flash_attention))
+    # three Adafactor steps of the top-2 model (the first at rate 0)
+    params = init_params(SMALL_MOE, 0, device=dev)
+    step, init = tt.make_train_step(
+        SMALL_MOE, optimizer=tt.default_optimizer(kind="adafactor",
+                                                  warmup_steps=1),
+        attn_fn=fa.flash_attention)
+    state = init(params)
+    start = [x.detach().clone() for x in state.leaves]
+    losses = torch.stack([step(params, state, on)[2] for _ in range(3)])
+    out["Adafactor"] = (losses, start, state.leaves)
+    # three AdamW steps of rank-4 f32 adapters on the dense base
+    base = init_params(SMALL_TRAIN, 0, device=dev)
+    frozen = [x.clone() for x in tt._param_leaves(base)]
+    adapters = lora.init_lora(base, SMALL_LORA_RANK, 1, dtype=torch.float32)
+    step, init = lora.make_lora_train_step(SMALL_TRAIN,
+                                           attn_fn=fa.flash_attention)
+    state = init(adapters)
+    start = [x.detach().clone() for x in state.leaves]
+    losses = torch.stack([step(base, adapters, state, on)[2]
+                          for _ in range(3)])
+    out["LoRA"] = (losses, start, state.leaves)
+    out["base unchanged"] = all(
+        torch.equal(a, b) for a, b in zip(frozen, tt._param_leaves(base)))
+    # the encoder's loss and gradients given one corruption
+    corrupted, selected = (x.to(dev) for x in corruption)
+    out["MLM"] = _loss_and_grads(
+        init_params(enc.encoder_config(SMALL_TRAIN), 0, device=dev),
+        lambda p: enc._mlm_loss(p, on[0], corrupted, selected,
+                                enc.encoder_config(SMALL_TRAIN),
+                                fa.flash_attention))
+    return out
+
+
+def small_moe_lora_mlm_phase(card: str) -> None:
+    print(f"{card}: fp32, the card's runs against the CPU's from one seed")
+    rng = np.random.RandomState(7)
+    b, t = SMALL_TRAIN_BATCH
+    # token ids below vocab - 1, the [MASK] id
+    batch = tuple(torch.from_numpy(
+        rng.randint(0, SMALL_TRAIN.vocab - 1, (b, t)).astype(np.int32))
+        for _ in range(2))
+    corruption = enc.mlm_corrupt(batch[0], torch.Generator().manual_seed(3),
+                                 SMALL_TRAIN.vocab)
+    wrappers = _flash_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    card = _small_moe_lora_mlm(DEV, batch, corruption)
+    counts = {n: w.launches for n, w in wrappers.items()}
+    cpu = _small_moe_lora_mlm("cpu", batch, corruption)
+    for name in ("top-2 MoE", "dense MoE", "MLM"):
+        _check_grads(name, card[name], cpu[name])
+    for name in ("Adafactor", "LoRA"):
+        _check_steps(name, card[name], cpu[name])
+    # nine forwards and backwards of two layers, no remat
+    expect = 9 * SMALL_TRAIN.n_layers
+    print(f"  LoRA base bit-identical after the steps: card "
+          f"{card['base unchanged']}, cpu {cpu['base unchanged']}; card "
+          f"flash launches {counts} (expected {expect} each)")
+    if not (card["base unchanged"] and cpu["base unchanged"]):
+        raise AssertionError("LoRA steps changed the frozen base")
+    if counts != {n: expect for n in wrappers}:
+        raise AssertionError(f"card runs launched {counts}, expected "
+                             f"{expect} of each flash kernel")
+
+    # the MLM step on the card draws its corruption there, from a CUDA
+    # generator, without a host wait
+    params = init_params(enc.encoder_config(SMALL_TRAIN), 0, device=DEV)
+    step, init = enc.make_mlm_train_step(SMALL_TRAIN,
+                                         attn_fn=fa.flash_attention)
+    state = init(params)
+    tokens = batch[0].to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    with no_device_waits():
+        _, selected = enc.mlm_corrupt(tokens, gen, SMALL_TRAIN.vocab)
+    share = selected.float().mean().item()
+    losses = [step(params, state, tokens, gen)[2].item() for _ in range(2)]
+    print(f"  MLM steps on the card, corruption from a CUDA generator (no "
+          f"host wait): losses {losses}, selected share {share:.3f}")
+    if not all(math.isfinite(x) for x in losses) or not 0.1 < share < 0.2:
+        raise AssertionError("MLM steps on the card went wrong")
+
+    # the MoE engine (its decode chunks replayed) and MoE generation, with
+    # float and int8 expert banks: the card's greedy tokens are the CPU's
+    rng = np.random.RandomState(8)
+    prompts = [[int(x) for x in rng.randint(0, SMALL.vocab, 6)]
+               for _ in range(16)]
+    outs = {dev: ServingEngine(init_params(SMALL_MOE_GEN, 0, device=dev),
+                               SMALL_MOE_GEN, device=dev,
+                               **SMALL_ENGINE).run(prompts, 8)
+            for dev in (DEV, "cpu")}
+    print(f"  MoE engine, 16 requests x 8 tokens: card tokens == cpu "
+          f"tokens: {outs[DEV] == outs['cpu']}")
+    if outs[DEV] != outs["cpu"]:
+        raise AssertionError("MoE engine: card and CPU tokens differ")
+    prompt = torch.from_numpy(
+        rng.randint(0, SMALL.vocab, (2, 16)).astype(np.int32))
+    steps = 24
+    for name, cfg, int8 in (
+            ("top-2", SMALL_MOE_GEN, False),
+            ("dense, int8", replace(SMALL_MOE_GEN, moe_top_k=0), True)):
+        toks = {}
+        for dev in ("cpu", DEV):
+            params = init_params(cfg, 0, device=dev)
+            if int8:
+                params = quantize_params(params)
+            on_dev = prompt.to(dev)
+            da.flash_decode_attention.launches = 0
+            with no_device_waits():
+                out = generate(params, cfg, on_dev, steps=steps)
+            launches = da.flash_decode_attention.launches
+            toks[dev] = out.cpu()
+        expect = cfg.n_layers * (steps - 1)
+        same = torch.equal(toks[DEV], toks["cpu"])
+        print(f"  MoE generate ({name}): {steps} greedy tokens card == cpu: "
+              f"{same}, no host wait; B5 launches on the card {launches} "
+              f"(expected {expect})")
+        if not same or launches != expect:
+            raise AssertionError(f"MoE generation ({name}): card and CPU "
+                                 f"disagree")
+
+
+def _timed_steps(run_step, n: int = TIMED_STEPS):
+    """``n`` calls of ``run_step`` (returning a detached loss) between
+    CUDA events, with the flash kernels' launches counted from zero and
+    the peak memory reset: (ms per step, losses, launches, peak bytes)."""
+    wrappers = _flash_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [run_step() for _ in range(n)]
+    end.record()
+    end.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    return (start.elapsed_time(end) / n, [x.item() for x in losses],
+            launches, torch.cuda.max_memory_allocated())
+
+
+def _check_flash_launches(launches, cfg, label) -> None:
+    """B1 twice per layer and step under remat (the recompute), B2 and
+    B3 once, over TIMED_STEPS steps."""
+    n_l = cfg.n_layers * TIMED_STEPS
+    expect = {"flash_forward": 2 * n_l, "flash_backward_dq": n_l,
+              "flash_backward_dkv": n_l}
+    if launches != expect:
+        raise AssertionError(f"{label}: flash kernels launched {launches}, "
+                             f"expected {expect}")
+
+
+def _check_losses(first, losses, label) -> None:
+    lo, hi = FIRST_LOSS_RANGE
+    if not all(math.isfinite(x) for x in [first] + losses) \
+            or not lo <= first <= hi:
+        raise AssertionError(f"{label}: losses {[first] + losses} not "
+                             f"finite, or the first outside [{lo}, {hi}]")
+
+
+def full_width_mlm_phase(card: str) -> dict:
+    """B1-B3 at the bidirectional full-width shape (prefix = t, every
+    pair visible), then three timed MLM steps of the encoder. Returns the
+    kernels' readings at that shape."""
+    gen = torch.Generator().manual_seed(8)
+    b, h, h_kv, t, d = FLASH_FULL
+    print(f"{card}: B1-B3 at the full-width shape, every pair visible")
+    _flash_bf16_case("bidirectional_full_width", (b, h, h_kv, t, t, d),
+                     {"prefix": t}, gen)
+    torch.cuda.empty_cache()
+    bidir = _flash_full_width(gen, {"prefix": t})
+    for name, r in bidir.items():
+        print(f"{card}: {name}, bidirectional: {r['ms']:.4f} ms, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of its "
+              f"{r['bound_ms']:.4f} ms bound")
+    torch.cuda.empty_cache()
+
+    cfg = enc.encoder_config(FULL_TRAIN)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=DEV)
+    b, t = FULL_TRAIN_BATCH
+    tokens = torch.randint(0, cfg.vocab - 1, (b, t),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    step, init = enc.make_mlm_train_step(FULL_TRAIN,
+                                         attn_fn=fa.flash_attention)
+    state = init(params)
+    cgen = torch.Generator(device=DEV).manual_seed(0)
+    first = step(params, state, tokens, cgen)[2].item()
+    print(f"{tt.param_count(params) / 1e6:.1f}M params, encoder prefix "
+          f"{cfg.prefix}; untimed first step and set-up "
+          f"{time.perf_counter() - t0:.1f} s, loss {first:.4f}")
+    step_ms, losses, launches, peak = _timed_steps(
+        lambda: step(params, state, tokens, cgen)[2])
+    print(f"{card}: MLM, {TIMED_STEPS} steps of {b}x{t} (15% of positions "
+          f"corrupted on the card each step): {step_ms:.2f} ms/step, "
+          f"{b * t / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {losses}; flash launches "
+          f"{launches}")
+    _check_flash_launches(launches, FULL_TRAIN, "MLM")
+    _check_losses(first, losses, "MLM")
+    return bidir
+
+
+def full_width_lora_phase(card: str) -> None:
+    t0 = time.perf_counter()
+    base = init_params(FULL_TRAIN, 0, device=DEV)
+    adapters = lora.init_lora(base, LORA_RANK, 2)
+    counts = lora.lora_param_counts(base, adapters)
+    frozen = [x.clone() for x in tt._param_leaves(base)]
+    b, t = FULL_TRAIN_BATCH
+    tokens = torch.randint(0, FULL_TRAIN.vocab, (b, t),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    batch = (tokens, tokens)
+    step, init = lora.make_lora_train_step(FULL_TRAIN,
+                                           attn_fn=fa.flash_attention)
+    state = init(adapters)
+    first = step(base, adapters, state, batch)[2].item()
+    print(f"base {counts['base'] / 1e6:.1f}M params, rank-{LORA_RANK} bf16 "
+          f"adapters on wqkv and wo {counts['adapters'] / 1e6:.3f}M; "
+          f"untimed first step and set-up {time.perf_counter() - t0:.1f} s, "
+          f"loss {first:.4f}")
+    step_ms, losses, launches, peak = _timed_steps(
+        lambda: step(base, adapters, state, batch)[2])
+    same = all(torch.equal(a, b)
+               for a, b in zip(frozen, tt._param_leaves(base)))
+    print(f"{card}: LoRA, {TIMED_STEPS} steps of {b}x{t}: {step_ms:.2f} "
+          f"ms/step, {b * t / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {losses}; flash launches "
+          f"{launches}; base bit-identical after the steps: {same}")
+    _check_flash_launches(launches, FULL_TRAIN, "LoRA")
+    _check_losses(first, losses, "LoRA")
+    if not same:
+        raise AssertionError("full-width LoRA steps changed the base")
+
+
+def full_width_moe_generation_phase(card: str):
+    """The generation cell with 8 experts, top-2, bf16: the short and
+    long chains as replays (wall rate, idle share, capture time, B5
+    launches), the long chain's device time, and the long chain by the
+    eager step (tokens equal, or parting at a near-tie). Returns the
+    params, which the MoE training phase reuses."""
+    cfg = FULL_MOE_GEN
+    run = GEN_FULL_RUN
+    short, long_ = run["gen_short"], run["gen_long"]
+    b, t0 = run["b"], run["prompt_len"]
+    max_t = t0 + long_
+    start = time.perf_counter()
+    params = init_params(cfg, 0, device=DEV)
+    n_params = tt.param_count(params)
+    prompt = torch.randint(0, cfg.vocab, (b, t0),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    print(f"{n_params / 1e6:.1f}M params in "
+          f"{time.perf_counter() - start:.1f} s")
+    generate(params, cfg, prompt, steps=short, max_t=max_t)   # set-up
+    walls, outs = {}, {}
+    for n in (short, long_):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.flash_decode_attention.launches = 0
+        StepGraph.captures, StepGraph.capture_seconds = 0, 0.0
+        t_call = time.perf_counter()
+        with no_device_waits():
+            outs[n] = generate(params, cfg, prompt, steps=n, max_t=max_t)
+        torch.cuda.synchronize()
+        walls[n] = time.perf_counter() - t_call
+        launches = da.flash_decode_attention.launches
+        captures, capture_s = StepGraph.captures, StepGraph.capture_seconds
+    peak = torch.cuda.max_memory_allocated()
+    wall_step = (walls[long_] - walls[short]) / (long_ - short)
+    dev_step = timing.device_seconds_per_step(
+        lambda: generate(params, cfg, prompt, steps=long_, max_t=max_t),
+        long_)
+    out = outs[long_]
+    expect = cfg.n_layers * (long_ - 1)
+    eager, eager_wall, eager_logits = _eager_chain(params, cfg, prompt,
+                                                   long_, max_t)
+    parts = _partings(out[:, t0:].cpu(), eager[:, t0:].cpu(), eager_logits)
+    del eager_logits
+    if dev_step is None:
+        device = "device time not measured (the profiler saw no kernel)"
+    else:
+        device = (f"{1e3 * dev_step:.3f} ms/step by device time (the long "
+                  f"chain's device-busy time over its {long_} steps), card "
+                  f"idle {100 * (1 - dev_step * long_ / walls[long_]):.1f}% "
+                  f"of the long chain")
+    print(f"{card}, MoE 8 experts top-2, bf16: {b / wall_step:.1f} tokens/s "
+          f"wall ({1e3 * wall_step:.3f} ms/step, marginal between {short} "
+          f"and {long_} steps); {device}; long chain {walls[long_]:.3f} s "
+          f"wall; {captures} CUDA graph captured in {1e3 * capture_s:.1f} "
+          f"ms per call, apart from the steps; peak memory "
+          f"{peak / 2**30:.2f} GiB; B5 launches {launches} per call, counted "
+          f"per replay (expected {expect})")
+    print(f"  the same long chain by the eager step: {eager_wall:.3f} s wall, "
+          f"{1e3 * eager_wall / long_:.3f} ms/step, prefill included; "
+          f"replayed tokens equal to the eager ones: {not parts}"
+          + "".join(f"; row {r_} parts at step {j} ({sl:.2e} of the largest "
+                    f"|logit| below the eager top)" for r_, j, sl in parts))
+    if out.shape != (b, t0 + long_) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError("MoE generation: malformed output")
+    if not torch.equal(outs[short], out[:, :t0 + short]):
+        raise AssertionError("MoE generation: the short chain's tokens are "
+                             "not a prefix of the long chain's")
+    if any(sl > TOL_TIE_REL for _, _, sl in parts):
+        raise AssertionError("MoE generation: the replayed chain parts from "
+                             "the eager one where no near-tie is")
+    if launches != expect or captures != 1:
+        raise AssertionError(f"MoE generation: B5 launched {launches} times "
+                             f"per call, expected {expect}, or {captures} "
+                             f"captures, expected 1")
+    del outs, out, eager
+    torch.cuda.empty_cache()
+    return params
+
+
+def _ranged(name, fn):
+    """``fn`` run inside a ``torch.profiler`` range called ``name``."""
+    from torch.profiler import record_function
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _moe_split(events, d_ff) -> dict:
+    """Device ms of a profiled MoE training step by part. A kernel is
+    charged to the launching op's innermost range among the MoE FFN
+    (forward and its recompute), the rest of the block and the
+    optimizer, or, in the backward, to the forward op it differentiates
+    (matched by sequence number to the ops run inside the MoE range).
+    Products whose operands have a d_ff dim are the experts'; the MoE's
+    other products are the router and the dispatch and combine."""
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    moe_seq = {e.sequence_nr for e in events if e.sequence_nr >= 0
+               and any(a.name == MOE_RANGE for a in chain(e.cpu_parent))}
+
+    def part(e):
+        for a in chain(e):
+            if a.name in (MOE_RANGE, BLOCK_RANGE, OPT_RANGE):
+                return a.name
+            if a.name.startswith("autograd::engine::evaluate_function"):
+                return MOE_RANGE if a.sequence_nr in moe_seq else None
+        return None
+
+    split = {g: 0.0 for g in (
+        "flash (B1-B3)", "matrix products outside the MoE (cuBLAS)",
+        "MoE expert products (cuBLAS)",
+        "MoE router, dispatch and combine products (cuBLAS)",
+        "MoE routing, one-hots, GELU, casts (elementwise)",
+        "optimizer: clip and Adafactor",
+        "other: norms, RoPE, loss, casts, copies")}
+    for e in events:
+        if not e.kernels:
+            continue
+        where = part(e)
+        expert = any(isinstance(s, list) and d_ff in s
+                     for s in e.input_shapes or ())
+        for k in e.kernels:
+            name = k.name.lower()
+            if "flash_fwd" in name or "flash_bwd" in name:
+                g = "flash (B1-B3)"
+            elif where == OPT_RANGE:
+                g = "optimizer: clip and Adafactor"
+            elif any(f in name for f in GEMM_NAMES):
+                g = ("matrix products outside the MoE (cuBLAS)"
+                     if where != MOE_RANGE else
+                     "MoE expert products (cuBLAS)" if expert else
+                     "MoE router, dispatch and combine products (cuBLAS)")
+            elif where == MOE_RANGE:
+                g = "MoE routing, one-hots, GELU, casts (elementwise)"
+            else:
+                g = "other: norms, RoPE, loss, casts, copies"
+            split[g] += k.duration / 1e3
+    return split
+
+
+def _profile_moe_step(run_step, state, step_ms: float, card: str) -> None:
+    """One more MoE training step under ``torch.profiler``, its device
+    time split by :func:`_moe_split`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    patched = {"_moe_topk": tt._moe_topk, "_make_block": tt._make_block}
+    tt._moe_topk = _ranged(MOE_RANGE, tt._moe_topk)
+    make_block = patched["_make_block"]
+    tt._make_block = lambda cfg, attn_fn: _ranged(
+        BLOCK_RANGE, make_block(cfg, attn_fn))
+    state.apply = _ranged(OPT_RANGE, state.apply)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            run_step()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in patched.items():
+            setattr(tt, name, fn)
+        del state.apply
+    split = _moe_split(prof.events(), FULL_MOE_TRAIN.d_ff)
+    busy = sum(split.values())
+    if not busy:
+        print("profiled MoE step: the profiler recorded no device time "
+              "(split not measured)")
+        return
+    print(f"{card}: profiled MoE step, device busy {busy:.2f} ms against "
+          f"the timed {step_ms:.2f} ms")
+    for name, ms in split.items():
+        print(f"  {name}: {ms:.2f} ms ({100 * ms / busy:.1f}% of busy)")
+
+
+def full_width_moe_training_phase(card: str, params) -> None:
+    """The training cell with 8 experts, top-2, capacity 1.25 and
+    Adafactor: one untimed and three timed steps on ``params`` (the
+    generation phase's, the same seed's draws) in the stacked layout."""
+    cfg = FULL_MOE_TRAIN
+    t0 = time.perf_counter()
+    params = tt.stack_layer_params(params)
+    torch.cuda.empty_cache()
+    n_params = tt.param_count(params)
+    banks = sum(params["layers"][k].numel() for k in ("moe_up", "moe_down"))
+    active = n_params - banks + banks * cfg.moe_top_k / cfg.n_experts
+    b, t = FULL_TRAIN_BATCH
+    tokens = torch.randint(0, cfg.vocab, (b, t),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    batch = (tokens, tokens)
+    step, init = tt.make_train_step(
+        cfg, optimizer=tt.default_optimizer(kind="adafactor"),
+        attn_fn=fa.flash_attention)
+    state = init(params)
+    first = step(params, state, batch)[2].item()
+    capacity = max(1, int(cfg.moe_capacity_factor * cfg.moe_top_k * t
+                          / cfg.n_experts))
+    print(f"{n_params / 1e9:.3f}B params ({active / 1e9:.3f}B active: all "
+          f"but the expert banks, plus {cfg.moe_top_k}/{cfg.n_experts} of "
+          f"them), capacity {capacity} a row; untimed first step and "
+          f"set-up {time.perf_counter() - t0:.1f} s, loss {first:.4f}")
+    step_ms, losses, launches, peak = _timed_steps(
+        lambda: step(params, state, batch)[2])
+    flops_per_token = 6 * active + 6 * cfg.n_layers * t * cfg.d_model
+    print(f"{card}: MoE training, {TIMED_STEPS} steps of {b}x{t} with "
+          f"Adafactor: {step_ms:.2f} ms/step, {b * t / step_ms * 1e3:.1f} "
+          f"tokens/s, {b * t * flops_per_token / step_ms / 1e9:.1f} model "
+          f"TFLOP/s (6 x active params + 6 x layers x t x d_model a token; "
+          f"the dispatch and combine products are not counted), peak "
+          f"memory {peak / 2**30:.2f} GiB; losses {losses}; flash launches "
+          f"{launches}")
+    _check_flash_launches(launches, cfg, "MoE training")
+    _check_losses(first, losses, "MoE training")
+    _profile_moe_step(lambda: step(params, state, batch), state, step_ms,
+                      card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1886,6 +2478,24 @@ def main() -> int:
 
     phase("full-width training")
     launches = full_width_training_phase(smi, flash)
+
+    phase("MoE, Adafactor, LoRA and MLM on the card vs on the CPU "
+          "(fp32, small)")
+    small_moe_lora_mlm_phase(smi)
+
+    phase("full-width MLM")
+    full_width_mlm_phase(smi)
+
+    phase("full-width LoRA")
+    full_width_lora_phase(smi)
+
+    phase("full-width MoE generation")
+    # held in a list so that the training phase, which restacks them, has
+    # the only reference to the generation layout's params
+    moe_params = [full_width_moe_generation_phase(smi)]
+
+    phase("full-width MoE training")
+    full_width_moe_training_phase(smi, moe_params.pop())
 
     phase("paged kernel per launch")
     paged_launch_phase(gen)

@@ -139,9 +139,25 @@ def test_mlp_uses_tanh_gelu():
     want = jt._mlp(jnp.asarray(x), {k: jnp.asarray(v)
                                     for k, v in layer.items()})
     _close(got, want, CONTRACTION)
-    cfg = tt.ModelConfig(n_experts=2)
-    with pytest.raises(NotImplementedError):
-        tt._ffn(_t(x), {"moe_up": None}, cfg)
+    # _ffn takes the MLP for a dense layer and the mixture for expert
+    # banks, as the reference's does
+    jcfg = jt.ModelConfig(n_experts=2, dtype=jnp.float32)
+    tcfg = tt.ModelConfig(n_experts=2, dtype=torch.float32)
+    _close(tt._ffn(_t(x), {k: _t(v) for k, v in layer.items()}, tcfg),
+           jt._ffn(jnp.asarray(x), {k: jnp.asarray(v)
+                                    for k, v in layer.items()}, jcfg),
+           CONTRACTION)
+    moe = {"router": _randn(rng, 16, 2),
+           "moe_up": _randn(rng, 2, 16, 32, scale=0.5),
+           "moe_down": _randn(rng, 2, 32, 16, scale=0.5)}
+    for top_k in (0, 1):
+        jc = jt.ModelConfig(n_experts=2, moe_top_k=top_k, dtype=jnp.float32)
+        tc = tt.ModelConfig(n_experts=2, moe_top_k=top_k,
+                            dtype=torch.float32)
+        _close(tt._ffn(_t(x), {k: _t(v) for k, v in moe.items()}, tc),
+               jt._ffn(jnp.asarray(x), {k: jnp.asarray(v)
+                                        for k, v in moe.items()}, jc),
+               CONTRACTION)
 
 
 def test_stack_unstack_roundtrip():

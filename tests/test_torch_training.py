@@ -269,10 +269,14 @@ def test_unknown_remat_policy_and_moe_raise():
     _, bad = _cfgs(remat=True, remat_policy="everything")
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tt.loss_fn(tp, _tbatch(_batch()), bad)
-    _, moe = _cfgs(n_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.loss_fn(tt.init_params(moe, 0, device="cpu"), _tbatch(_batch()),
-                   moe)
+    # an MoE config trains through the same loss: its loss matches the
+    # reference's from the same params
+    jmoe, tmoe = _cfgs(n_experts=2, moe_top_k=1)
+    jp, tp = _params(jmoe)
+    batch = _batch()
+    want = jax.jit(functools.partial(jt.loss_fn, cfg=jmoe))(jp, batch)
+    got = tt.loss_fn(tp, _tbatch(batch), tmoe)
+    assert got.item() == pytest.approx(float(want), rel=LOSS_RTOL)
 
 
 def test_scan_layers_matches_the_list_layout():
@@ -331,8 +335,11 @@ def test_default_optimizer_kinds():
     assert opt.weight_decay == 0.1 and opt.clip_norm == 1.0
     assert opt.learning_rate(0) == 0.0
     assert tt.AdamW().weight_decay == 1e-4 and tt.AdamW().eps == 1e-8
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        tt.default_optimizer(kind="adafactor")
+    with pytest.raises(ValueError, match="weight_decay"):
+        tt.default_optimizer(kind="adafactor", weight_decay=0.1)
+    ada = tt.default_optimizer(kind="adafactor")
+    assert isinstance(ada, tt.Adafactor) and ada.clip_norm == 1.0
+    assert ada.learning_rate(0) == 0.0
     with pytest.raises(ValueError, match="unknown optimizer kind"):
         tt.default_optimizer(kind="sgd")
 

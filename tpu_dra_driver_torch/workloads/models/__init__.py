@@ -1,7 +1,7 @@
 """Model-side modules of the port: quantization helpers, the
-transformer (layers, training forward, loss, optimizer, train step),
-KV-cache generation, and the continuous-batching engine, with their
-throughput benchmarks."""
+transformer (layers, training forward, loss, optimizers, train step),
+LoRA adapters, the masked-LM encoder, KV-cache generation, and the
+continuous-batching engine, with their throughput benchmarks."""
 
 from tpu_dra_driver_torch.workloads.models.quantize import (  # noqa: F401
     QTensor,
@@ -16,13 +16,16 @@ from tpu_dra_driver_torch.workloads.models.serving import (  # noqa: F401
     serving_throughput,
 )
 from tpu_dra_driver_torch.workloads.models.transformer import (  # noqa: F401
+    Adafactor,
     AdamW,
     ModelConfig,
     default_optimizer,
     forward,
     init_params,
     loss_fn,
+    loss_positions,
     make_train_step,
+    nll_from_logits,
     param_count,
     stack_layer_params,
     train_tokens_per_sec,
@@ -38,4 +41,17 @@ from tpu_dra_driver_torch.workloads.models.generate import (  # noqa: F401
     init_kv_cache,
     truncate_top_k,
     wide_step,
+)
+from tpu_dra_driver_torch.workloads.models.lora import (  # noqa: F401
+    init_lora,
+    lora_param_counts,
+    make_lora_train_step,
+    merge_lora,
+)
+from tpu_dra_driver_torch.workloads.models.encoder import (  # noqa: F401
+    encoder_config,
+    make_mlm_train_step,
+    mlm_accuracy,
+    mlm_corrupt,
+    mlm_loss_fn,
 )

@@ -74,6 +74,21 @@ def quantize_params(params: Dict, include_embed: bool = True) -> Dict:
     return walk(params)
 
 
+def ffn_weights(layer: Dict, dtype=torch.bfloat16) -> Dict:
+    """The layer with its int8 MoE banks (``moe_up``, ``moe_down``)
+    dequantized to ``dtype`` for the einsum paths. The dense leaves stay
+    quantized (:func:`mm` takes them) and the router is never quantized
+    (:data:`_MATMUL_KEYS`)."""
+    if not any(isinstance(layer.get(k), QTensor)
+               for k in ("moe_up", "moe_down")):
+        return layer
+    out = dict(layer)
+    for k in ("moe_up", "moe_down"):
+        if isinstance(out.get(k), QTensor):
+            out[k] = out[k].dequant(dtype)
+    return out
+
+
 def _leaves(node) -> Iterator[Union[torch.Tensor, QTensor]]:
     """Tensor and :class:`QTensor` leaves of a dict/list params tree."""
     if isinstance(node, dict):

@@ -1,10 +1,12 @@
 """The flagship transformer LM: config, parameters, the layers, the
-training forward and loss, the optimizer and the train step.
+training forward and loss, the optimizers and the train step.
 
 Port of :mod:`tpu_dra_driver.workloads.models.transformer`. Params are a
 plain dict with the reference's keys and shapes, so a JAX pytree
-converts one to one (:func:`..convert.params_from_jax`). The MoE layers
-and ``default_optimizer(kind="adafactor")`` are not ported yet.
+converts one to one (:func:`..convert.params_from_jax`). The FFN half of
+a block is the dense MLP, the softmax-gated dense mixture of experts or
+the top-k mixture with capacity, as in the reference; the optimizers are
+optax's AdamW and Adafactor chains.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
@@ -22,7 +25,7 @@ from torch.utils.checkpoint import (
 
 from tpu_dra_driver_torch.workloads import resolve_device
 from tpu_dra_driver_torch.workloads.models.quantize import (
-    QTensor, _leaves, embed_lookup, lm_head, mm,
+    QTensor, _leaves, embed_lookup, ffn_weights, lm_head, mm,
 )
 from tpu_dra_driver_torch.workloads.ops.attention import (
     attention_reference, flash_attention,
@@ -197,11 +200,81 @@ def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
               layer["w_down"])
 
 
+def _moe(x: torch.Tensor, layer: Params) -> torch.Tensor:
+    """Softmax-gated dense mixture of experts: every expert runs on every
+    token ([b, E, t, ff]) and the outputs are weighted by the gates,
+    computed in f32 and cast to x's dtype for the combine."""
+    gates = torch.softmax((x @ layer["router"]).float(), dim=-1)
+    up = torch.einsum("btd,edf->betf", x, layer["moe_up"])
+    act = F.gelu(up, approximate="tanh")
+    down = torch.einsum("betf,efd->betd", act, layer["moe_down"])
+    return torch.einsum("bte,betd->btd", gates.to(x.dtype), down)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, the
+    lower index first among equal values, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` on CUDA promises no order on ties)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_topk(x: torch.Tensor, layer: Params, top_k: int,
+              capacity_factor: float) -> torch.Tensor:
+    """Top-k mixture of experts with capacity (GShard/Switch dispatch and
+    combine). Each token's top_k experts by router logit, weighted by the
+    softmax over those k logits; each (token, slot) takes its place in
+    its expert's queue in (t, k) order, and those past ``capacity`` are
+    dropped (the block's residual carries them). The expert FFN runs on
+    the gathered [b, E, C, d] block.
+
+    Every shape comes from the input's shapes and the one-hots are
+    comparisons with an ``arange``: nothing is read on the host, so a
+    CUDA graph can capture it."""
+    b, t, d = x.shape
+    n_e = layer["router"].shape[-1]
+    capacity = max(1, int(capacity_factor * top_k * t / n_e))
+    dev = x.device
+
+    logits = (x @ layer["router"]).float()                     # [b,t,E]
+    top_vals, top_idx = _top_k(logits, top_k)                  # [b,t,k]
+    weights = torch.softmax(top_vals, dim=-1)                  # renormalized
+    assign = (top_idx[..., None]
+              == torch.arange(n_e, device=dev)).float()        # [b,t,k,E]
+    # each (token, slot)'s place in its expert's queue: an exclusive
+    # cumsum over the slots in (t, k) order
+    flat = assign.reshape(b, t * top_k, n_e)
+    pos = (flat.cumsum(1) - flat).reshape(b, t, top_k, n_e)
+    within = (pos < capacity).float() * assign                 # kept
+    slot = (pos * assign).sum(-1)                              # [b,t,k]
+    pos_oh = (slot[..., None] == torch.arange(
+        capacity, device=dev, dtype=slot.dtype)).float()       # [b,t,k,C]
+    # dispatch [b,t,E,C]: does token t go to expert e at slot c; combine
+    # weights it by the kept gate (one k at most per (t, e), so the two
+    # are one contraction over k each, never a [b,t,k,E,C] product)
+    dispatch = torch.einsum("btke,btkc->btec", within, pos_oh)
+    combine = torch.einsum("btke,btkc->btec", within * weights[..., None],
+                           pos_oh)
+
+    xin = torch.einsum("btec,btd->becd", dispatch.to(x.dtype), x)
+    up = torch.einsum("becd,edf->becf", xin, layer["moe_up"])
+    act = F.gelu(up, approximate="tanh")
+    out = torch.einsum("becf,efd->becd", act, layer["moe_down"])
+    return torch.einsum("btec,becd->btd", combine.to(x.dtype), out)
+
+
 def _ffn(xn2: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
-    """The block's FFN half. Only the dense MLP is ported."""
-    if "moe_up" in layer or cfg.n_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet")
-    return _mlp(xn2, layer)
+    """The block's FFN half: the dense MLP, the top-k MoE or the dense
+    MoE, by the layer's params and the config; shared by the training
+    forward, prefill, decode and the paged engine. Int8 expert banks are
+    dequantized for the einsums (the dense leaves stay quantized for
+    :func:`mm`)."""
+    if "moe_up" not in layer:
+        return _mlp(xn2, layer)
+    layer = ffn_weights(layer, xn2.dtype)
+    if cfg.moe_top_k > 0:
+        return _moe_topk(xn2, layer, cfg.moe_top_k, cfg.moe_capacity_factor)
+    return _moe(xn2, layer)
 
 
 def _attention(x: torch.Tensor, layer: Params, n_heads: int,
@@ -245,10 +318,14 @@ def _make_block(cfg: ModelConfig, attn_fn):
     return block
 
 
-# the outputs of the un-batched projections, which is what JAX's
-# dots_with_no_batch_dims_saveable keeps (batched products, as in the
-# attention oracle, are aten.bmm and are recomputed)
-_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# the outputs of the matrix products: the projections (aten.mm, addmm)
+# and the batched products (aten.bmm) that the MoE einsums and the
+# attention oracle lower to. JAX's dots_with_no_batch_dims_saveable
+# keeps only dots without batch dimensions, so it recomputes most MoE
+# einsums in the backward where this policy keeps them; the values are
+# the same either way, only memory and time differ
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.bmm.default)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -416,6 +493,18 @@ class AdamW:
         return OptState(self, params)
 
 
+def _trainable_leaves(params: Params) -> List[torch.Tensor]:
+    """The leaves of ``params`` in a fixed order, each set to require
+    grad; quantized or integer leaves are refused."""
+    leaves = _param_leaves(params)
+    for leaf in leaves:
+        if isinstance(leaf, QTensor) or not leaf.is_floating_point():
+            raise ValueError("training needs floating-point params "
+                             "(quantized params are inference-only)")
+        leaf.requires_grad_(True)
+    return leaves
+
+
 class OptState:
     """The optimizer's state over one params tree: ``torch.optim.AdamW``
     over its leaves (moments in each leaf's dtype, as optax keeps them),
@@ -423,12 +512,7 @@ class OptState:
     clip norm. Creating it sets ``requires_grad`` on every leaf."""
 
     def __init__(self, spec: AdamW, params: Params):
-        self.leaves = _param_leaves(params)
-        for leaf in self.leaves:
-            if isinstance(leaf, QTensor) or not leaf.is_floating_point():
-                raise ValueError("training needs floating-point params "
-                                 "(quantized params are inference-only)")
-            leaf.requires_grad_(True)
+        self.leaves = _trainable_leaves(params)
         lr = spec.learning_rate
         schedule = lr if callable(lr) else (lambda step: lr)
         self.optimizer = torch.optim.AdamW(
@@ -453,6 +537,121 @@ class OptState:
             leaf.grad = None
 
 
+# optax.adafactor's defaults, the reference's settings: second moments
+# factored over two dims of at least 128, decay 1 - (count + 1)^-0.8,
+# eps added to g², updates clipped to block RMS 1, the parameter scale
+# at least 1e-3
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP_RMS = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+@dataclass(frozen=True)
+class Adafactor:
+    """``optax.adafactor(learning_rate)`` (optax 0.2.6, its defaults: no
+    momentum, no weight decay), optionally preceded by
+    ``optax.clip_by_global_norm(clip_norm)``. The chain, per leaf:
+    ``scale_by_factored_rms`` (second moments factored into row and
+    column means over the two largest dims when both are at least 128,
+    else kept whole), ``clip_by_block_rms(1.0)``,
+    ``scale_by_learning_rate(learning_rate, flip_sign=False)``,
+    ``scale_by_param_block_rms(1e-3)`` and ``scale(-1)``.
+    ``learning_rate`` is a number or a schedule ``step -> lr``."""
+
+    learning_rate: Union[float, Callable[[int], float]] = 1e-3
+    clip_norm: Optional[float] = None
+
+    def init(self, params: Params) -> "AdafactorState":
+        return AdafactorState(self, params)
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's choice: the second-largest and the largest dim (by
+    ``np.argsort`` of the shape), or None when the leaf has fewer than
+    two dims or the second-largest is below
+    ``ADAFACTOR_MIN_DIM_TO_FACTOR``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class AdafactorState:
+    """The Adafactor state over one params tree: per leaf, its row and
+    column second-moment factors or its whole second moment, in the
+    leaf's dtype (as optax keeps them), and the step count. optax keeps
+    one count in each transform that has one (the factored RMS and the
+    schedule); each advances once per update, so one count stands for
+    both. Creating it sets ``requires_grad`` on every leaf."""
+
+    def __init__(self, spec: Adafactor, params: Params):
+        self.spec = spec
+        self.leaves = _trainable_leaves(params)
+        self.count = 0
+        self.dims, self.v = [], []
+        for leaf in self.leaves:
+            dims = _factored_dims(tuple(leaf.shape))
+            self.dims.append(dims)
+            if dims is None:
+                self.v.append(torch.zeros_like(leaf))
+            else:
+                d1, d0 = dims
+                self.v.append(tuple(
+                    leaf.new_zeros(np.delete(leaf.shape, d).tolist())
+                    for d in (d0, d1)))                 # (v_row, v_col)
+
+    @torch.no_grad()
+    def apply(self, grads) -> None:
+        """One update of the leaves in place from ``grads`` (one per
+        leaf, in the leaves' dtypes). Each step's arithmetic follows
+        optax's dtypes: the moment averages in f32, stored in the leaf's
+        dtype, the update in the leaf's dtype."""
+        grads = list(grads)
+        if self.spec.clip_norm is not None:
+            _clip_by_global_norm(grads, self.spec.clip_norm)
+        # optax's _decay_rate_pow, in f32
+        t = np.float32(self.count + 1)
+        decay = float(np.float32(1.0)
+                      - t ** np.float32(-ADAFACTOR_DECAY_RATE))
+        lr = self.spec.learning_rate
+        lr = lr(self.count) if callable(lr) else lr
+        for i, (leaf, g) in enumerate(zip(self.leaves, grads)):
+            g_sqr = g * g + ADAFACTOR_EPS
+            if self.dims[i] is None:
+                v = (decay * self.v[i].float()
+                     + (1.0 - decay) * g_sqr.float()).to(leaf.dtype)
+                self.v[i] = v
+                u = g * v ** -0.5
+            else:
+                d1, d0 = self.dims[i]
+                v_row, v_col = (
+                    (decay * old.float()
+                     + (1.0 - decay) * g_sqr.mean(dim=d).float()
+                     ).to(leaf.dtype)
+                    for old, d in zip(self.v[i], (d0, d1)))
+                self.v[i] = (v_row, v_col)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1,
+                                                 keepdim=True)) ** -0.5
+                u = (g * row_factor.unsqueeze(d0)
+                     * (v_col ** -0.5).unsqueeze(d1))
+            del g_sqr
+            # clip_by_block_rms, the learning rate (rounded to the leaf's
+            # dtype, as optax's scale_by_schedule does), the parameter
+            # scale, and the step down the gradient
+            rms = u.square().mean().sqrt()
+            u = u / (rms / ADAFACTOR_CLIP_RMS).clamp_min(1.0)
+            u = u * float(torch.tensor(lr, dtype=leaf.dtype))
+            u = u * leaf.square().mean().sqrt().clamp_min(
+                ADAFACTOR_MIN_SCALE)
+            leaf.sub_(u)
+        self.count += 1
+
+
 def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
     """``optax.clip_by_global_norm``, in place: when the global norm is at
     least ``max_norm`` each gradient becomes ``g / norm * max_norm``
@@ -467,25 +666,35 @@ def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
 def default_optimizer(lr: float = 3e-4, warmup_steps: int = 100,
                       total_steps: int = 10_000, clip_norm: float = 1.0,
                       weight_decay: Optional[float] = None,
-                      kind: str = "adamw") -> AdamW:
+                      kind: str = "adamw") -> Union[AdamW, Adafactor]:
     """The reference's training recipe: global-norm clipping, then AdamW
-    (weight decay 0.1 unless given) on a linear-warmup cosine-decay
-    schedule from 0 to ``lr`` and down to ``0.1 * lr`` at
-    ``total_steps``. With the default warmup the first step's rate is 0,
-    so it leaves the params unchanged."""
-    if kind == "adafactor":
-        raise NotImplementedError("default_optimizer(kind='adafactor') is "
-                                  "not ported yet")
-    if kind != "adamw":
-        raise ValueError(f"unknown optimizer kind {kind!r} "
-                         f"(adamw | adafactor)")
+    (weight decay 0.1 unless given) or, with ``kind="adafactor"``,
+    optax's Adafactor (factored second moments, no first moment), on a
+    linear-warmup cosine-decay schedule from 0 to ``lr`` and down to
+    ``0.1 * lr`` at ``total_steps``. With the default warmup the first
+    step's rate is 0, so it leaves the params unchanged. ``weight_decay``
+    is AdamW's decoupled coefficient and is refused with Adafactor, as
+    the reference refuses it."""
     schedule = warmup_cosine_decay(lr, warmup_steps, total_steps, lr * 0.1)
-    return AdamW(learning_rate=schedule,
-                 weight_decay=0.1 if weight_decay is None else weight_decay,
-                 clip_norm=clip_norm)
+    if kind == "adamw":
+        return AdamW(learning_rate=schedule,
+                     weight_decay=0.1 if weight_decay is None
+                     else weight_decay,
+                     clip_norm=clip_norm)
+    if kind == "adafactor":
+        if weight_decay is not None:
+            raise ValueError(
+                "weight_decay is the AdamW-style decoupled coefficient; "
+                "adafactor's weight_decay_rate has different (per-step "
+                "multiplicative) semantics — configure optax.adafactor "
+                "directly if you need it")
+        return Adafactor(learning_rate=schedule, clip_norm=clip_norm)
+    raise ValueError(f"unknown optimizer kind {kind!r} "
+                     f"(adamw | adafactor)")
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
+def make_train_step(cfg: ModelConfig,
+                    optimizer: Optional[Union[AdamW, Adafactor]] = None,
                     attn_fn=None, accum_steps: int = 1,
                     exit_layer: Optional[int] = None,
                     exit_weight: float = 0.3):
@@ -509,7 +718,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
                                     materialize_grads=True)
         return loss.detach(), grads
 
-    def train_step(params, opt_state: OptState, batch):
+    def train_step(params, opt_state: Union[OptState, AdafactorState],
+                   batch):
         leaves = opt_state.leaves
         if accum_steps == 1:
             loss, grads = loss_and_grads(params, batch, leaves)
