@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port (``tpu_dra_driver_torch``).
 
 Drives the port's serving, generation and training paths, and the
-mixture-of-experts, Adafactor, LoRA and masked-LM encoder paths, on one
-CUDA card and checks them; imports no JAX. Phases, each of which fails the
+mixture-of-experts, Adafactor, LoRA, masked-LM encoder, encoder-decoder,
+beam-search and speculative-decoding paths, on one CUDA card and checks
+them; imports no JAX. Phases, each of which fails the
 run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
@@ -102,7 +103,41 @@ run when it fails:
    TFLOP/s over the active parameters), then one more step under
    ``torch.profiler`` split into flash, cuBLAS, the MoE's products, its
    routing and the optimizer;
-17. paged kernel per launch: B4's split and merge kernels timed apart
+17. seq2seq, beam and speculative parity: in fp32 on the card and on the
+   CPU from one seed, at the CPU tests' sizes: the seq2seq loss,
+   gradients and three AdamW steps with ``attn_fn=flash_attention`` (a
+   source shorter than ``max_src``; B1-B3's launches counted) and its
+   greedy tokens; ``beam_search(return_all=True)`` under sync-debug mode
+   (sequences equal, scores within 1e-5, each score its sequence's
+   ``sequence_logprob`` within 1e-4, B5's launches counted over two
+   alternating graphs); ``speculative_generate`` with a random and an
+   int8 self-draft, each round's replay under sync-debug mode, equal to
+   the card's own ``generate`` and to the CPU's rounds and acceptance,
+   ``wide_step`` with g = 4 at a device position against the CPU, and
+   ``speculative_sample`` with draft = target accepting everything;
+18. seq2seq: B1-B3 at the cross-attention shape (q [8, 16, 512, 128],
+   k/v [8, 4, 2048, 128], no mask), held row by row against an f32
+   reference with a tile left out shown to break that allowance, timed
+   against their plain versions and SDPA; then the full-width
+   encoder-decoder (the training configuration's widths and depth in
+   both stacks, 805M parameters; batch 8 x (2048 source, 512 target),
+   AdamW(1e-3), flash attention): one untimed and three timed steps
+   (24 launches each of B1-B3 a step asserted), one step under
+   ``torch.profiler``, and ``greedy_decode`` for 64 steps (B1 launches
+   asserted);
+19. beam search: the generation configuration, batch 8, prompt 2048,
+   beam 4, 128 steps (32 cache rows of 2176 slots) under sync-debug
+   mode: B5's launches and the captures counted, wall and device ms per
+   step (marginal against 32 steps), the idle share, the cache
+   reorder's and B5's share of the step by the profiler, and the best
+   row's score against ``sequence_logprob`` in bf16;
+20. speculative decoding: the reference bench's own calls,
+   ``speculative_decode_tokens_per_sec`` and
+   ``early_exit_decode_tokens_per_sec`` (b 1, gamma 8, 256 tokens; the
+   early-exit output exact or a near-tie), with the host reads per call;
+   ``speculative_sample`` with draft = target at the generation widths,
+   in f32 (every proposal accepted, asserted) and in bf16;
+21. paged kernel per launch: B4's split and merge kernels timed apart
    under ``torch.profiler`` at phase 3's serving read. Every use of the
    profiler follows the wall-clock readings of its phase.
 
@@ -131,12 +166,15 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dra_driver_torch import entry
+from tpu_dra_driver_torch.workloads.models import beam as bm
 from tpu_dra_driver_torch.workloads.models import encoder as enc
 from tpu_dra_driver_torch.workloads.models import lora
+from tpu_dra_driver_torch.workloads.models import seq2seq as s2s
+from tpu_dra_driver_torch.workloads.models import speculative as spec
 from tpu_dra_driver_torch.workloads.models import transformer as tt
 from tpu_dra_driver_torch.workloads.models.generate import (
     _step_body, block_prefill, chunked_prefill, decode_step,
-    decode_tokens_per_sec, generate, init_kv_cache,
+    decode_tokens_per_sec, generate, init_kv_cache, wide_step,
 )
 from tpu_dra_driver_torch.workloads.models.quantize import quantize_params
 from tpu_dra_driver_torch.workloads.models.serving import (
@@ -357,6 +395,80 @@ FULL_MOE_GEN = replace(GEN_FULL, n_experts=8, moe_top_k=2,
                        moe_capacity_factor=1.25)
 # LoRA at full width: rank 16 on the attention projections
 LORA_RANK = 16
+# seq2seq, beam search and speculative decoding on the card against the
+# CPU in fp32, at the CPU tests' sizes: a source of 8 tokens against
+# max_src 12 (bidirectional throughout), head dim 16
+SMALL_S2S = s2s.Seq2SeqConfig(vocab=16, d_model=64, n_heads=4, n_kv_heads=2,
+                              n_enc_layers=2, n_dec_layers=2, d_ff=128,
+                              max_src=12, max_tgt=12, dtype=torch.float32)
+SMALL_S2S_BATCH = (16, 8)
+SMALL_BEAM = ModelConfig(vocab=128, d_model=64, n_heads=2, n_kv_heads=1,
+                         n_layers=2, d_ff=128, max_seq=64, use_rope=True,
+                         dtype=torch.float32)
+SMALL_BEAM_STEPS = 10
+SMALL_SPEC_TARGET = ModelConfig(vocab=256, d_model=128, n_heads=4,
+                                n_kv_heads=2, n_layers=2, d_ff=256,
+                                max_seq=128, use_rope=True,
+                                dtype=torch.float32)
+SMALL_SPEC_DRAFT = ModelConfig(vocab=256, d_model=64, n_heads=2, n_layers=1,
+                               d_ff=128, max_seq=128, use_rope=True,
+                               dtype=torch.float32)
+# beam scores in fp32, card against CPU (summation order through ten
+# log-softmaxes), and against the card's own teacher-forced re-scoring
+# (another path to the same logits: the block forward and the oracle
+# attention against the decode step and B5)
+TOL_BEAM_SCORE_REL = 1e-5
+TOL_BEAM_RESCORE_REL = 1e-4
+# the full-width seq2seq configuration: both stacks at the training
+# configuration's widths and depth; batch 8 x (2048 source, 512 target)
+FULL_S2S = s2s.Seq2SeqConfig(vocab=8192, d_model=2048, n_heads=16,
+                             n_kv_heads=4, n_enc_layers=8, n_dec_layers=8,
+                             d_ff=8192, max_src=2048, max_tgt=512)
+FULL_S2S_BATCH = (8, 2048, 512)
+S2S_DECODE_STEPS = 64
+# (b, h, h_kv, t, tkv, d) of one cross-attention call of that
+# configuration, no mask, and the 64 x 64 tiles (first q row, first KV
+# column) whose omission its bf16 allowance must see
+FLASH_CROSS = (8, 16, 4, 512, 2048, 128)
+FLASH_CROSS_TILES = ((256, 1024), (448, 1984))
+# ... and of its decoder's causal self-attention (t = 512), with the
+# diagonal tile of the middle rows and a middle tile seen from the last
+# rows
+FLASH_DEC_CAUSAL = (8, 16, 4, 512, 512, 128)
+FLASH_DEC_CAUSAL_TILES = ((256, 256), (448, 256))
+# full-width beam search on the generation configuration: T5's published
+# summarization beam width (4); 32 cache rows of 2176 slots
+BEAM_FULL = dict(b=8, prompt_len=2048, beam=4, steps=128)
+BEAM_SHORT_STEPS = 32
+# bf16 beam score against the bf16 teacher-forced re-scoring, relative to
+# the score: bf16's unit roundoff, as each token's log-probability
+# carries about that share of itself in either path; a step that gathers
+# wrong cache rows moves the following tokens' log-probabilities by whole
+# nats
+TOL_BEAM_BF16_REL = 2.0 ** -8
+BEAM_KERNEL_GROUPS = (
+    ("flash decode (B5)", ("flash_decode_split", "flash_decode_merge")),
+    # index_select's row gathers (the reorder's 16 a step; the embedding
+    # lookup's one is 32 rows of 4 KB)
+    ("cache reorder (row gathers)", ("indexselect", "vectorized_gather")),
+    ("top-k (sort)", ("sort",)),
+    ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
+)
+# B5 at the beam's read (32 rows of 2176 slots, bf16), at its first and
+# last replayed step's positions
+DECODE_BEAM = (32, 16, 4, 2176, 128)
+DECODE_BEAM_POS = (2048, 2174)
+# ... and at the speculative drafts' reads (b = 1): cache length -> bf16
+# positions across the run; 512 slots for the int8 self-draft bench's 128
+# + 256 + 8 + 2 tokens, 384 for the early exit's 64 + 256 + 8 + 2; f32
+# (the f32 speculative_sample) at one position of the longer cache
+DECODE_SPEC = {512: (128, 257, 393), 384: (200, 329)}
+DECODE_SPEC_F32 = (512, 300)
+# the reference bench's speculative calls (bench.py:2346, :2371), and the
+# speculative calls each makes: one for its stats, one warm-up and three
+# timed
+SPEC_FULL = dict(b=1, gamma=8, gen=256)
+SPEC_BENCH_CALLS = 5
 # profiler ranges the MoE step's split attributes kernels by
 MOE_RANGE, BLOCK_RANGE, OPT_RANGE = "smoke:moe", "smoke:block", "smoke:opt"
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "wgmma")
@@ -691,7 +803,7 @@ def full_width_phase(card: str) -> dict:
         params, FULL, [p.clone() for p in args[0]],
         [p.clone() for p in args[1]], *(a.to(DEV) for a in args[2:]),
         n_live_blocks=n_live)
-    cpu_params = _to_cpu(params)
+    cpu_params = _on(params, "cpu")
     cpu_logits, _, _ = paged_decode_step(
         cpu_params, FULL, [p.cpu() for p in args[0]],
         [p.cpu() for p in args[1]], *args[2:], n_live_blocks=n_live)
@@ -892,8 +1004,8 @@ def _tile_omission(allow, operands, row0, col0, n, mask=None):
     vr = v32[:, :, cols].repeat_interleave(rep, dim=1)
     qt, dot = q32[:, :, rows], do32[:, :, rows]
     mask = mask or {}
-    vis = fa._visible(t, t, True, None, 0, mask.get("prefix"),
-                      q32.device)[rows][:, cols]
+    vis = fa._visible(t, k32.shape[2], mask.get("causal", True), None, 0,
+                      mask.get("prefix"), q32.device)[rows][:, cols]
     s = torch.einsum("bhid,bhjd->bhij", qt, kr) / math.sqrt(d)
     p = torch.where(vis, torch.exp(s - lse[:, :, rows, None]), 0.0)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dot, vr)
@@ -964,15 +1076,20 @@ def _flash_bf16_case(name, shape, mask, gen) -> None:
     _check_empty_rows(pairs, empty, f"bf16 {name}")
 
 
-def _flash_full_width(gen, mask: dict) -> dict:
-    """B1-B3 at the full-width training shapes in bf16 under ``mask``
-    (causal when empty, bidirectional with ``prefix`` = t): every output
-    row against the f32 reference within its allowance, a 64 x 64 tile
-    left out shown to break that allowance, then each kernel timed with
-    a cold L2 against its plain version, SDPA (causal or not, as the
-    mask) and its bound from this run's visible pairs."""
-    b, h, h_kv, t, d = FLASH_FULL
-    shape = (b, h, h_kv, t, t, d)
+def _flash_full_width(gen, mask: dict, shape=None,
+                      tiles=FLASH_MUTANT_TILES) -> dict:
+    """B1-B3 at a full-width shape (b, h, h_kv, t, tkv, d) in bf16 under
+    ``mask`` (causal when empty, bidirectional with ``prefix`` = t, no
+    mask with ``causal=False``); the shape defaults to the training
+    configuration's: every output row against the f32 reference within
+    its allowance, a 64 x 64 tile at each of ``tiles`` left out shown to
+    break that allowance, then each kernel timed with a cold L2 against
+    its plain version, SDPA (causal or not, as the mask) and its bound
+    from this run's visible pairs."""
+    if shape is None:
+        b, h, h_kv, t, d = FLASH_FULL
+        shape = (b, h, h_kv, t, t, d)
+    b, h, h_kv, t, tkv, d = shape
     q, k, v, dout, g_lse = _flash_inputs(shape, torch.bfloat16, gen)
     g_lse.zero_()                     # flash_attention's backward: no lse
     pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
@@ -988,7 +1105,7 @@ def _flash_full_width(gen, mask: dict) -> dict:
     allow = {o: _allowance(pairs[o][1], ref[o]) for o in outputs}
     omitted = [_tile_omission(allow, operands, r0, c0, FLASH_MUTANT_TILE,
                               mask)
-               for r0, c0 in FLASH_MUTANT_TILES]
+               for r0, c0 in tiles]
     del operands
     print("  worst row vs the f32 reference, relative to the row's largest "
           "value (kernel, bf16 plain); kernel's worst error over its "
@@ -1000,7 +1117,7 @@ def _flash_full_width(gen, mask: dict) -> dict:
         print(f"  {o}: {got['kernel']:.3e} (row {got['at']}), "
               f"{got['plain']:.3e}; {got['over']:.3f}; " + ", ".join(
                   f"tile {r0},{c0} {m:.1f}"
-                  for m, (r0, c0) in zip(mutants, FLASH_MUTANT_TILES)))
+                  for m, (r0, c0) in zip(mutants, tiles)))
         if not got["over"] <= 1.0:
             raise AssertionError(f"flash {o} disagrees in bf16 at full "
                                  f"width: {got['over']} of its allowance")
@@ -1038,8 +1155,8 @@ def _flash_full_width(gen, mask: dict) -> dict:
     torch.cuda.empty_cache()
     # yardsticks only (the port never calls them): SDPA's forward, and
     # its backward, one time for dq, dk and dv together; causal, or over
-    # every pair when the prefix covers the sequence
-    causal = "prefix" not in mask
+    # every pair when the prefix covers the sequence or there is no mask
+    causal = mask.get("causal", True) and "prefix" not in mask
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True), flush=flush)
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
@@ -1054,7 +1171,8 @@ def _flash_full_width(gen, mask: dict) -> dict:
 
     # bounds from this run's inputs: each input read once, each output
     # written once; 4 d (B1), 6 d (B2), 8 d (B3) flops per visible pair
-    vis = fa._visible(t, t, True, None, 0, mask.get("prefix"), DEV)
+    vis = fa._visible(t, tkv, mask.get("causal", True), None, 0,
+                      mask.get("prefix"), DEV)
     pairs = b * h * int(vis.sum().item())
     qb, kvb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rowb = b * h * t * 4                              # lse or D, f32
@@ -1772,6 +1890,7 @@ SERVING_KERNEL_GROUPS = (
     ("paged decode (B4)", ("paged_decode",)),
     ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
 )
+OTHER_KERNELS = "other (elementwise, reductions, copies)"
 # ... and of a decode step
 DECODE_KERNEL_GROUPS = (
     ("flash decode (B5)", ("flash_decode_split", "flash_decode_merge")),
@@ -1779,37 +1898,47 @@ DECODE_KERNEL_GROUPS = (
 )
 
 
-def _profile_step(run_step, step_ms: float, groups=KERNEL_GROUPS,
-                  what: str = "step") -> Optional[float]:
-    """Device time by kernel over one more run of ``run_step`` (a
-    training step, or ``what``) under ``torch.profiler``, grouped as in
-    ``groups`` (everything else is elementwise, reductions and copies),
-    against its timed wall time ``step_ms``; returns the device-busy ms
-    (None when the profiler recorded none)."""
+def _device_split(run, groups):
+    """One more ``run()`` under ``torch.profiler``: (device-busy ms (the
+    sum of the kernels' own times), {group: ms} by kernel-name fragments
+    in ``groups`` (everything else is elementwise, reductions and
+    copies), [(kernel name, ms, count)]), or None when the profiler
+    recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_step()
+        run()
         torch.cuda.synchronize()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     if not kernels:
-        print("profiled step: the profiler recorded no device time "
-              "(breakdown not measured)")
         return None
-    busy = sum(ms for _, ms, _ in kernels)
     shares = {name: 0.0 for name, _ in groups}
-    shares["other (elementwise, reductions, copies)"] = 0.0
+    shares[OTHER_KERNELS] = 0.0
     for key, ms, _ in kernels:
         low = key.lower()
         name = next((g for g, frags in groups
-                     if any(f in low for f in frags)),
-                    "other (elementwise, reductions, copies)")
+                     if any(f in low for f in frags)), OTHER_KERNELS)
         shares[name] += ms
+    return sum(ms for _, ms, _ in kernels), shares, kernels
+
+
+def _profile_step(run_step, step_ms: float, groups=KERNEL_GROUPS,
+                  what: str = "step") -> Optional[float]:
+    """Device time by kernel over one more run of ``run_step`` (a
+    training step, or ``what``) under ``torch.profiler``, grouped as in
+    ``groups``, against its timed wall time ``step_ms``; returns the
+    device-busy ms (None when the profiler recorded none)."""
+    split = _device_split(run_step, groups)
+    if split is None:
+        print("profiled step: the profiler recorded no device time "
+              "(breakdown not measured)")
+        return None
+    busy, shares, kernels = split
     print(f"profiled {what}: {len(kernels)} kernel names, device busy "
           f"{busy:.2f} ms against the timed {step_ms:.2f} ms")
     for name, ms in shares.items():
@@ -1895,12 +2024,13 @@ def full_width_training_phase(card: str, flash: dict) -> dict:
     return launches
 
 
-def _to_cpu(node):
+def _on(node, dev):
+    """A detached copy of a params tree on ``dev``."""
     if isinstance(node, dict):
-        return {k: _to_cpu(v) for k, v in node.items()}
+        return {k: _on(v, dev) for k, v in node.items()}
     if isinstance(node, list):
-        return [_to_cpu(v) for v in node]
-    return node.cpu()
+        return [_on(v, dev) for v in node]
+    return node.detach().to(dev)
 
 
 # ------------------------------------------- MoE, Adafactor, LoRA and MLM
@@ -2422,6 +2552,492 @@ def full_width_moe_training_phase(card: str, params) -> None:
                       card)
 
 
+# ------------------------------------- seq2seq, beam and speculative decoding
+
+@contextlib.contextmanager
+def _rounds_without_waits():
+    """Inside, every run of a speculative round's :class:`StepGraph`
+    made there (the warm-up, the capture and each replay) is under
+    sync-debug mode; the host's read of the counters between rounds is
+    outside it. Yields the graphs' class, whose ``calls`` counts those
+    runs (the rounds, one host read each) and ``captures`` and
+    ``capture_seconds`` the rounds' share of :class:`StepGraph`'s."""
+    class Guarded(StepGraph):
+        calls, captures, capture_seconds = 0, 0, 0.0
+
+        def __call__(self):
+            Guarded.calls += 1
+            n, seconds = StepGraph.captures, StepGraph.capture_seconds
+            with no_device_waits():
+                out = super().__call__()
+            Guarded.captures += StepGraph.captures - n
+            Guarded.capture_seconds += StepGraph.capture_seconds - seconds
+            return out
+
+    real = spec.StepGraph
+    spec.StepGraph = Guarded
+    try:
+        yield Guarded
+    finally:
+        spec.StepGraph = real
+
+
+def _small_seq2seq(card: str) -> None:
+    rng = np.random.RandomState(9)
+    b, t = SMALL_S2S_BATCH
+    src = torch.from_numpy(
+        rng.randint(1, SMALL_S2S.vocab, (b, t)).astype(np.int32))
+    batch = (src, src.flip(1))
+    wrappers = _flash_wrappers()
+    runs = {}
+    for dev in (DEV, "cpu"):
+        on = tuple(x.to(dev) for x in batch)
+        grads = _loss_and_grads(
+            s2s.init_seq2seq_params(SMALL_S2S, 0, device=dev),
+            lambda p: s2s.seq2seq_loss_fn(p, on, SMALL_S2S,
+                                          fa.flash_attention))
+        params = s2s.init_seq2seq_params(SMALL_S2S, 0, device=dev)
+        step, init = s2s.make_seq2seq_train_step(SMALL_S2S,
+                                                 attn_fn=fa.flash_attention)
+        state = init(params)
+        start = [x.detach().clone() for x in state.leaves]
+        for w in wrappers.values():
+            w.launches = 0
+        losses = torch.stack([step(params, state, on)[2] for _ in range(3)])
+        launches = {n: w.launches for n, w in wrappers.items()}
+        runs[dev] = (grads, (losses, start, state.leaves), params, launches)
+    print(f"  seq2seq ({SMALL_S2S.n_enc_layers} + {SMALL_S2S.n_dec_layers} "
+          f"layers, source {t} of max_src {SMALL_S2S.max_src}), "
+          f"attn_fn=flash_attention; card launches over 3 steps "
+          f"{runs[DEV][3]}")
+    _check_grads("seq2seq loss and gradients", runs[DEV][0], runs["cpu"][0])
+    _check_steps("seq2seq, three AdamW(1e-3) steps", runs[DEV][1],
+                 runs["cpu"][1])
+    # each step: the encoder's layers, and the decoder's self- and
+    # cross-attention
+    per_step = SMALL_S2S.n_enc_layers + 2 * SMALL_S2S.n_dec_layers
+    if runs[DEV][3] != {n: 3 * per_step for n in wrappers}:
+        raise AssertionError(f"seq2seq steps launched {runs[DEV][3]}, "
+                             f"expected {3 * per_step} of each")
+    # greedy decoding from the CPU's trained params on both sides
+    params = _on(runs["cpu"][2], "cpu")
+    toks = {dev: s2s.greedy_decode(_on(params, dev), src.to(dev), SMALL_S2S,
+                                   t, attn_fn=fa.flash_attention).cpu()
+            for dev in (DEV, "cpu")}
+    print(f"  greedy_decode of {t} steps, card == cpu: "
+          f"{torch.equal(toks[DEV], toks['cpu'])}")
+    if not torch.equal(toks[DEV], toks["cpu"]):
+        raise AssertionError("seq2seq greedy tokens differ between the "
+                             "card and the CPU")
+
+
+def _small_beam(card: str) -> None:
+    cfg, steps, beam = SMALL_BEAM, SMALL_BEAM_STEPS, 4
+    prompt = torch.from_numpy(np.random.RandomState(10).randint(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    runs = {}
+    for dev in ("cpu", DEV):
+        params = init_params(cfg, 0, device=dev)
+        on = prompt.to(dev)
+        da.flash_decode_attention.launches = 0
+        StepGraph.captures = 0
+        with (no_device_waits() if dev == DEV else contextlib.nullcontext()):
+            seqs, scores = bm.beam_search(params, cfg, on, steps, beam,
+                                          return_all=True)
+        runs[dev] = (seqs.cpu(), scores.cpu(), da.flash_decode_attention
+                     .launches, StepGraph.captures)
+        if dev == DEV:
+            rescored = torch.stack(
+                [bm.sequence_logprob(params, cfg, on, seqs[:, k])
+                 for k in range(beam)], 1)
+            rescore_err = ((rescored - scores).abs()
+                           / scores.abs()).max().item()
+    (seqs, scores, launches, captures), (c_seqs, c_scores, _, _) = \
+        runs[DEV], runs["cpu"]
+    err = ((scores - c_scores).abs() / c_scores.abs()).max().item()
+    expect = cfg.n_layers * (steps - 1)
+    print(f"  beam_search (beam {beam}, {steps} steps, return_all) under "
+          f"sync-debug mode: sequences card == cpu "
+          f"{torch.equal(seqs, c_seqs)}, scores worst relative |card - "
+          f"cpu| {err:.2e} (tolerance {TOL_BEAM_SCORE_REL:.0e}); each "
+          f"score against sequence_logprob of its sequence on the card "
+          f"{rescore_err:.2e} (tolerance {TOL_BEAM_RESCORE_REL:.0e}); B5 "
+          f"launches {launches} (expected {expect}), {captures} graphs "
+          f"captured")
+    if not torch.equal(seqs, c_seqs) or not err <= TOL_BEAM_SCORE_REL \
+            or not rescore_err <= TOL_BEAM_RESCORE_REL:
+        raise AssertionError("beam search on the card disagrees with the "
+                             "CPU or with its own re-scoring")
+    if launches != expect or captures != 2:
+        raise AssertionError(f"beam search launched B5 {launches} times "
+                             f"(expected {expect}) in {captures} captures "
+                             f"(expected 2)")
+
+
+def _small_speculative(card: str) -> None:
+    tcfg, dcfg = SMALL_SPEC_TARGET, SMALL_SPEC_DRAFT
+    prompt = torch.from_numpy(np.random.RandomState(11).randint(
+        0, tcfg.vocab, (2, 8)).astype(np.int32))
+    gamma, steps = 3, 17
+    runs = {}
+    for dev in ("cpu", DEV):
+        tp = init_params(tcfg, 0, device=dev)
+        dp = init_params(dcfg, 9, device=dev)
+        on = prompt.to(dev)
+        want = generate(tp, tcfg, on, steps).cpu()
+        da.flash_decode_attention.launches = 0
+        with _rounds_without_waits():
+            got, stats = spec.speculative_generate(
+                tp, tcfg, dp, dcfg, on, steps, gamma, return_stats=True)
+            launches = da.flash_decode_attention.launches
+            self_got, self_stats = spec.self_speculative_generate(
+                tp, tcfg, on, steps, gamma, return_stats=True)
+        # the wide verify alone, at a device position, g = gamma + 1
+        cache = init_kv_cache(tcfg, 2, 32, device=dev)
+        block_prefill(tp, tcfg, cache, on)
+        pos = torch.full((), prompt.shape[1], dtype=torch.int32, device=dev)
+        wide, _ = wide_step(tp, tcfg, cache, pos, on[:, :gamma + 1])
+        runs[dev] = (want, got.cpu(), stats, self_got.cpu(), self_stats,
+                     launches, wide.cpu())
+    card, cpu = runs[DEV], runs["cpu"]
+    wide_err = (card[6] - cpu[6]).abs().max().item()
+    expect = card[2]["rounds"] * (gamma + 1) * dcfg.n_layers
+    print(f"  speculative_generate (gamma {gamma}), each round's replay "
+          f"under sync-debug mode: random draft (mean accepted "
+          f"{card[2]['mean_accepted']:.3f} of {gamma}: it rejects) == the "
+          f"card's generate "
+          f"{torch.equal(card[1], card[0])} ({card[2]}, cpu {cpu[2]}); int8 "
+          f"self-draft == generate {torch.equal(card[3], card[0])} "
+          f"({card[4]}, cpu {cpu[4]}); tokens card == cpu "
+          f"{torch.equal(card[1], cpu[1])}; B5 launches {card[5]} (expected "
+          f"{expect}); wide_step g={gamma + 1} at a device position, "
+          f"logits max |card - cpu| {wide_err:.2e} (tolerance "
+          f"{TOL_ENGINE_LOGITS:.0e})")
+    if not (torch.equal(card[1], card[0]) and torch.equal(card[3], card[0])
+            and torch.equal(card[1], cpu[1]) and card[2] == cpu[2]
+            and card[4] == cpu[4]):
+        raise AssertionError("speculative decoding on the card is not the "
+                             "target's greedy decode or disagrees with the "
+                             "CPU")
+    if not card[2]["mean_accepted"] < gamma:
+        raise AssertionError("the random draft was never rejected: the "
+                             "partial-acceptance path did not run")
+    if card[5] != expect or not wide_err <= TOL_ENGINE_LOGITS:
+        raise AssertionError(f"speculative drafts launched B5 {card[5]} "
+                             f"times (expected {expect}), or the wide "
+                             f"verify disagrees with the CPU")
+    # draft = target: every proposal accepted (p_t / p_d = 1 up to f32)
+    tp = init_params(tcfg, 0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    with _rounds_without_waits():
+        out, stats = spec.speculative_sample(
+            tp, tcfg, tp, tcfg, prompt.to(DEV), 16, gen, gamma=4,
+            return_stats=True)
+    print(f"  speculative_sample with draft = target (gamma 4): {stats}")
+    if stats["mean_accepted"] != 4.0 or out.shape != (2, 24):
+        raise AssertionError("speculative_sample with draft = target did "
+                             "not accept every proposal")
+
+
+def small_seq2seq_beam_spec_phase(card: str) -> None:
+    print(f"{card}: fp32, the card's runs against the CPU's from one seed")
+    _small_seq2seq(card)
+    _small_beam(card)
+    _small_speculative(card)
+
+
+def full_width_seq2seq_phase(card: str) -> dict:
+    """B1-B3 at the cross-attention shape and at the decoder's causal
+    self-attention, then seq2seq training steps and greedy decoding at
+    full width. Returns the kernels' readings at the cross shape."""
+    gen = torch.Generator().manual_seed(12)
+    print(f"{card}: B1-B3 at the cross-attention shape, no mask, "
+          f"q [{FLASH_CROSS[0]}, {FLASH_CROSS[1]}, {FLASH_CROSS[3]}, "
+          f"{FLASH_CROSS[5]}], k/v [{FLASH_CROSS[0]}, {FLASH_CROSS[2]}, "
+          f"{FLASH_CROSS[4]}, {FLASH_CROSS[5]}]")
+    _flash_bf16_case("cross_full_width", FLASH_CROSS, {"causal": False}, gen)
+    torch.cuda.empty_cache()
+    cross = _flash_full_width(gen, {"causal": False}, FLASH_CROSS,
+                              FLASH_CROSS_TILES)
+    print(f"{card}: B1-B3 at the decoder's causal self-attention, t = "
+          f"{FLASH_DEC_CAUSAL[3]}")
+    dec = _flash_full_width(gen, {}, FLASH_DEC_CAUSAL,
+                            FLASH_DEC_CAUSAL_TILES)
+    for label, readings in (("cross shape", cross),
+                            ("decoder causal t = 512", dec)):
+        for name, r in readings.items():
+            print(f"{card}: {name}, {label}: {r['ms']:.4f} ms, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of its "
+                  f"{r['bound_ms']:.4f} ms bound")
+    torch.cuda.empty_cache()
+
+    cfg = FULL_S2S
+    t_set = time.perf_counter()
+    params = s2s.init_seq2seq_params(cfg, 0, device=DEV)
+    n_params = tt.param_count(params)
+    b, ts, tt_ = FULL_S2S_BATCH
+    g = torch.Generator().manual_seed(1)
+    src = torch.randint(0, cfg.vocab, (b, ts), generator=g,
+                        dtype=torch.int32).to(DEV)
+    tgt = torch.randint(0, cfg.vocab, (b, tt_), generator=g,
+                        dtype=torch.int32).to(DEV)
+    batch = (src, tgt)
+    step, init = s2s.make_seq2seq_train_step(cfg, optimizer=tt.AdamW(1e-3),
+                                             attn_fn=fa.flash_attention)
+    state = init(params)
+    first = step(params, state, batch)[2].item()
+    print(f"{n_params / 1e6:.1f}M params (encoder "
+          f"{tt.param_count(params['encoder']) / 1e6:.1f}M); untimed first "
+          f"step and set-up {time.perf_counter() - t_set:.1f} s, loss "
+          f"{first:.4f}")
+    step_ms, losses, launches, peak = _timed_steps(
+        lambda: step(params, state, batch)[2])
+    print(f"{card}: seq2seq, {TIMED_STEPS} steps of {b} x ({ts} source + "
+          f"{tt_} target): {step_ms:.2f} ms/step, "
+          f"{b * (ts + tt_) / step_ms * 1e3:.1f} tokens/s (source plus "
+          f"target), peak memory {peak / 2**30:.2f} GiB; losses {losses}; "
+          f"flash launches {launches}")
+    per_step = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    expect = {name: per_step * TIMED_STEPS for name, _ in FLASH_KERNELS}
+    if launches != expect:
+        raise AssertionError(f"seq2seq: flash kernels launched {launches}, "
+                             f"expected {expect}")
+    if not all(math.isfinite(x) for x in [first] + losses):
+        raise AssertionError(f"seq2seq losses {[first] + losses} not finite")
+    _profile_step(lambda: step(params, state, batch), step_ms)
+    for leaf in state.leaves:
+        leaf.requires_grad_(False)
+    del state
+    torch.cuda.empty_cache()
+
+    # greedy decoding: the encoder once, then the whole decoder over the
+    # [b, steps + 1] buffer at every step, eagerly (the reference's
+    # design: no KV cache)
+    steps = S2S_DECODE_STEPS
+    with torch.no_grad():
+        s2s.encode(params, src, cfg, fa.flash_attention)    # warm
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        s2s.encode(params, src, cfg, fa.flash_attention)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - start
+    for name, _ in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = s2s.greedy_decode(params, src, cfg, steps,
+                            attn_fn=fa.flash_attention)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    b1 = fa.flash_forward.launches
+    expect = cfg.n_enc_layers + steps * 2 * cfg.n_dec_layers
+    print(f"{card}: greedy_decode, {steps} steps of {b} rows over "
+          f"{ts}-token sources: {wall:.3f} s wall, the encoder "
+          f"{1e3 * enc_s:.2f} ms of it, "
+          f"{1e3 * (wall - enc_s) / steps:.2f} ms per step (eager: the "
+          f"whole decoder over the buffer each step); B1 launches {b1} "
+          f"(expected {expect})")
+    if out.shape != (b, steps) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()) or b1 != expect:
+        raise AssertionError("seq2seq greedy_decode: malformed output or "
+                             "B1 launches")
+    return cross
+
+
+def full_width_beam_phase(card: str) -> int:
+    """B5 alone at the beam's read, then beam_search at full width.
+    Returns B5's launches over one beam_search call."""
+    gen = torch.Generator().manual_seed(13)
+    print(f"{card}: B5 at the beam's read, q [{DECODE_BEAM[0]}, "
+          f"{DECODE_BEAM[1]}, 1, {DECODE_BEAM[4]}], cache [{DECODE_BEAM[0]}, "
+          f"{DECODE_BEAM[2]}, {DECODE_BEAM[3]}, {DECODE_BEAM[4]}], bf16")
+    beam_inputs = _decode_inputs(DECODE_BEAM, torch.bfloat16, gen)
+    for pos in DECODE_BEAM_POS:
+        _decode_check("beam bf16", *beam_inputs, pos)
+    del beam_inputs
+    torch.cuda.empty_cache()
+
+    cfg = GEN_FULL
+    b, t0, width, steps = (BEAM_FULL[k] for k in
+                           ("b", "prompt_len", "beam", "steps"))
+    short = BEAM_SHORT_STEPS
+    params = init_params(cfg, 0, device=DEV)
+    prompt = torch.randint(0, cfg.vocab, (b, t0),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+
+    def run(n):
+        return bm.beam_search(params, cfg, prompt, n, width,
+                                return_all=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.flash_decode_attention.launches = 0
+    StepGraph.captures, StepGraph.capture_seconds = 0, 0.0
+    with no_device_waits():
+        seqs, scores = run(steps)
+    torch.cuda.synchronize()
+    launches = da.flash_decode_attention.launches
+    captures, capture_s = StepGraph.captures, StepGraph.capture_seconds
+    peak = torch.cuda.max_memory_allocated()
+    # the best of three calls of each length (a call's wall, its two
+    # captures included, moves with the host by tens of ms)
+    walls = {n: timing.time_fn(lambda n=n: run(n), warmup=0,
+                               iters=3).best_s
+             for n in (short, steps)}
+    wall_step = (walls[steps] - walls[short]) / (steps - short)
+    expect = cfg.n_layers * (steps - 1)
+    slots = da.round_up_kv(t0 + steps)
+    cache_gb = 2 * cfg.n_layers * b * width * (cfg.n_kv_heads or
+                                               cfg.n_heads) \
+        * slots * (cfg.d_model // cfg.n_heads) * 2 / 1e9
+    print(f"{card}: beam_search, batch {b}, prompt {t0}, beam {width}, "
+          f"{steps} steps ({b * width} cache rows of {slots} slots, "
+          f"{cache_gb:.2f} GB): {walls[steps]:.3f} s wall per call, "
+          f"{1e3 * wall_step:.3f} ms per step (marginal between {short} "
+          f"and {steps} steps); {captures} CUDA graphs captured in "
+          f"{1e3 * capture_s:.1f} ms, under sync-debug mode with the "
+          f"prefill and every replay; B5 launches {launches}, counted per "
+          f"replay (expected {expect}); peak memory {peak / 2**30:.2f} GiB")
+    if launches != expect or captures != 2:
+        raise AssertionError(f"beam: B5 launched {launches} times "
+                             f"(expected {expect}) in {captures} captures")
+    # the rescoring invariant on the best row, in bf16
+    best = seqs[:, 0]
+    lp = bm.sequence_logprob(params, cfg, prompt, best)
+    rel = ((lp - scores[:, 0]).abs() / scores[:, 0].abs()).max().item()
+    print(f"{card}: the best row's score {scores[:, 0].tolist()} against "
+          f"sequence_logprob {lp.tolist()}: worst relative difference "
+          f"{rel:.2e} (tolerance {TOL_BEAM_BF16_REL:.2e}: bf16's unit "
+          f"roundoff)")
+    sorted_ = bool((scores[:, 1:] <= scores[:, :-1]).all())
+    if not rel <= TOL_BEAM_BF16_REL or not sorted_ \
+            or not torch.equal(seqs[:, :, :t0], prompt[:, None].expand(
+                b, width, t0)):
+        raise AssertionError("beam at full width: the best score is not "
+                             "its sequence's log-probability, the beams "
+                             "are not sorted, or the prompt is not kept")
+    del seqs, scores, lp
+    torch.cuda.empty_cache()
+    # device time by kernel group, the long and the short call
+    split = {n: _device_split(lambda n=n: run(n), BEAM_KERNEL_GROUPS)
+             for n in (short, steps)}
+    if split[steps] is None:
+        print("  the profiler recorded no device time (not measured)")
+        return launches
+    (busy_l, shares_l, kernels), (busy_s, shares_s, _) = split[steps], \
+        split[short]
+    dev_step = (busy_l - busy_s) / (steps - short)
+    print(f"{card}: beam device time: {busy_l:.2f} ms busy per call, "
+          f"{dev_step:.3f} ms per step (marginal); the card idle "
+          f"{100 * (1 - busy_l / (1e3 * walls[steps])):.1f}% of the call's "
+          f"wall; per step:")
+    for name in shares_l:
+        ms = (shares_l[name] - shares_s[name]) / (steps - short)
+        print(f"    {name}: {ms:.4f} ms ({100 * ms / dev_step:.1f}% of the "
+              f"step)")
+    for key, ms, count in sorted(kernels, key=lambda k: -k[1])[:8]:
+        print(f"    {ms:9.3f} ms  {count:5d}x  {key[:100]}")
+    # B5 at 32 rows: the K/V bytes of the live slots (pos + 1 at each of
+    # the replayed steps' positions, t0 .. t0 + steps - 2) read once
+    rows, h_kv = b * width, cfg.n_kv_heads or cfg.n_heads
+    hd = cfg.d_model // cfg.n_heads
+    live = t0 + (steps - 2) / 2 + 1
+    bound_ms = 2 * rows * h_kv * live * hd * 2 / HBM_BYTES_PER_S * 1e3
+    per_launch = shares_l["flash decode (B5)"] / launches
+    print(f"{card}: B5 at {rows} rows: {per_launch:.4f} ms per launch by the "
+          f"profiler (split and merge kernels), {launches} launches; byte "
+          f"bound {bound_ms:.4f} ms at the run's mean {live:.0f} live "
+          f"slots ({100 * bound_ms / per_launch:.1f}% of it)")
+    return launches
+
+
+def full_width_speculative_phase(card: str) -> None:
+    gen = torch.Generator().manual_seed(14)
+    print(f"{card}: B5 at the drafts' reads, b = 1: q [1, 16, 1, 128], "
+          f"cache [1, 4, L, 128]")
+    for length, positions in DECODE_SPEC.items():
+        inputs = _decode_inputs((1, 16, 4, length, 128), torch.bfloat16, gen)
+        for pos in positions:
+            _decode_check(f"b = 1, {length} slots, bf16", *inputs, pos)
+    length, pos = DECODE_SPEC_F32
+    _decode_check(f"b = 1, {length} slots, f32", *_decode_inputs(
+        (1, 16, 4, length, 128), torch.float32, gen), pos)
+    del inputs
+    torch.cuda.empty_cache()
+
+    for name, bench in (
+            ("speculative_decode_tokens_per_sec (int8 self-draft)",
+             spec.speculative_decode_tokens_per_sec),
+            ("early_exit_decode_tokens_per_sec (2-layer int8 draft, "
+             "150 quick steps on the bigram chain)",
+             spec.early_exit_decode_tokens_per_sec)):
+        da.flash_decode_attention.launches = 0
+        StepGraph.captures, StepGraph.capture_seconds = 0, 0.0
+        start = time.perf_counter()
+        with _rounds_without_waits() as rounds:
+            r = bench(device=DEV, **SPEC_FULL)
+        print(f"{card}: {name}, {time.perf_counter() - start:.1f} s: "
+              + ", ".join(f"{k} {v}" for k, v in r.items()))
+        n_gen = StepGraph.captures - rounds.captures
+        gen_s = StepGraph.capture_seconds - rounds.capture_seconds
+        print(f"{card}: host reads (rounds, each replay under sync-debug "
+              f"mode) {rounds.calls} over the bench's {SPEC_BENCH_CALLS} "
+              f"speculative calls, {rounds.calls / SPEC_BENCH_CALLS:.1f} a "
+              f"call; B5 launches {da.flash_decode_attention.launches} over "
+              f"the bench; the round captured {rounds.captures} time(s) "
+              f"in {1e3 * rounds.capture_seconds:.1f} ms (kept across "
+              f"its calls); generate's step {n_gen} times, "
+              f"{1e3 * gen_s / max(n_gen, 1):.1f} ms each (once in each "
+              f"of its calls, the timed ones included)")
+        if not r["spec_tokens_per_sec"] > 0 \
+                or not 0 <= r["mean_accepted"] <= SPEC_FULL["gamma"] \
+                or da.flash_decode_attention.launches == 0 \
+                or rounds.calls % SPEC_BENCH_CALLS:
+            raise AssertionError(f"{name}: malformed result")
+        if "exact_greedy" in r and not (
+                r["exact_greedy"] or r["divergence"]):
+            raise AssertionError(f"{name}: output neither exact nor "
+                                 f"a near-tie")
+
+    # speculative_sample with draft = target: every proposal accepted in
+    # f32 (p_t / p_d is 1 up to f32 rounding). In bf16, the configuration's
+    # own precision, the g = 1 draft step and the g-wide verify round the
+    # logits differently: each p_t / p_d is off 1 by about bf16's unit
+    # roundoff, so a rejection is possible but rare (under one expected in
+    # a call's ~232 proposals); at most one round's worth of proposals may
+    # be lost (mean accepted >= gamma (1 - 1 / rounds))
+    b, gamma, n = SPEC_FULL["b"], SPEC_FULL["gamma"], SPEC_FULL["gen"]
+    prompt = torch.randint(0, GEN_FULL.vocab, (b, 128),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = replace(GEN_FULL, dtype=dtype)
+        params = init_params(cfg, 0, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out, stats = spec.speculative_sample(
+            params, cfg, params, cfg, prompt, n, gen, gamma=gamma,
+            return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        print(f"{card}: speculative_sample, draft = target, {dtype}, b {b}, "
+              f"gamma {gamma}, {n} tokens: {stats}, {wall:.3f} s wall, "
+              f"{b * n / wall:.1f} tokens/s")
+        least = gamma if dtype == torch.float32 else \
+            gamma * (1 - 1 / stats["rounds"])
+        print(f"  mean accepted {stats['mean_accepted']} (at least "
+              f"{least:.3f} asserted in {dtype})")
+        if out.shape != (b, 128 + n) or not stats["mean_accepted"] >= least:
+            raise AssertionError(f"speculative_sample with draft = target "
+                                 f"in {dtype} accepted "
+                                 f"{stats['mean_accepted']} of {gamma} a "
+                                 f"round, under {least}")
+        del params
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2496,6 +3112,19 @@ def main() -> int:
 
     phase("full-width MoE training")
     full_width_moe_training_phase(smi, moe_params.pop())
+
+    phase("seq2seq, beam and speculative on the card vs on the CPU "
+          "(fp32, small)")
+    small_seq2seq_beam_spec_phase(smi)
+
+    phase("full-width seq2seq")
+    full_width_seq2seq_phase(smi)
+
+    phase("full-width beam search")
+    full_width_beam_phase(smi)
+
+    phase("full-width speculative decoding")
+    full_width_speculative_phase(smi)
 
     phase("paged kernel per launch")
     paged_launch_phase(gen)

@@ -14,7 +14,9 @@ import torch
 
 from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads import convert
+from tpu_dra_driver_torch.workloads.models import seq2seq
 from tpu_dra_driver_torch.workloads.models import serving
+from tpu_dra_driver_torch.workloads.models import speculative
 from tpu_dra_driver_torch.workloads.models import transformer
 from tpu_dra_driver_torch.workloads.ops import paged_attention
 
@@ -74,6 +76,16 @@ def test_default_device_entry_points_raise_without_cuda():
         convert.params_from_jax({"embed": params["embed"].numpy()})
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.entry()
+    s2s_cfg = seq2seq.Seq2SeqConfig(vocab=16, d_model=8, n_heads=2,
+                                    n_enc_layers=1, n_dec_layers=1, d_ff=16,
+                                    max_src=8, max_tgt=8,
+                                    dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seq2seq.init_seq2seq_params(s2s_cfg, 0)
+    for bench in (speculative.speculative_decode_tokens_per_sec,
+                  speculative.early_exit_decode_tokens_per_sec):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench(cfg=cfg)
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_package(tmp_path):

@@ -1,7 +1,12 @@
 """Model-side modules of the port: quantization helpers, the
 transformer (layers, training forward, loss, optimizers, train step),
-LoRA adapters, the masked-LM encoder, KV-cache generation, and the
-continuous-batching engine, with their throughput benchmarks."""
+LoRA adapters, the masked-LM encoder, the encoder-decoder family,
+KV-cache generation, beam search, speculative decoding and the
+continuous-batching engine, with their throughput benchmarks.
+
+The names are those the reference's ``models`` exports, less
+``seq2seq_param_shardings``, which waits for the port's multi-GPU tier
+(and ``quantize``, a module name here)."""
 
 from tpu_dra_driver_torch.workloads.models.quantize import (  # noqa: F401
     QTensor,
@@ -54,4 +59,21 @@ from tpu_dra_driver_torch.workloads.models.encoder import (  # noqa: F401
     mlm_accuracy,
     mlm_corrupt,
     mlm_loss_fn,
+)
+from tpu_dra_driver_torch.workloads.models.beam import (  # noqa: F401
+    beam_search,
+    sequence_logprob,
+)
+from tpu_dra_driver_torch.workloads.models.speculative import (  # noqa: F401
+    self_speculative_generate,
+    speculative_decode_tokens_per_sec,
+    speculative_generate,
+    speculative_sample,
+)
+from tpu_dra_driver_torch.workloads.models.seq2seq import (  # noqa: F401
+    Seq2SeqConfig,
+    greedy_decode,
+    init_seq2seq_params,
+    make_seq2seq_train_step,
+    seq2seq_loss_fn,
 )

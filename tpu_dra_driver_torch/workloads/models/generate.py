@@ -371,6 +371,15 @@ def truncate_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
                        torch.full_like(logits, NEG_INF))
 
 
+def categorical(probs: torch.Tensor,
+                generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of ``probs`` [..., V] from ``generator``: the
+    argmax of p / E with E ~ Exp(1); a token of probability 0 is never
+    drawn, even where E is 0."""
+    e = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax((probs / e).masked_fill(probs == 0, -1.0), dim=-1)
+
+
 @torch.no_grad()
 def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
              steps: int, max_t: Optional[int] = None,
@@ -442,12 +451,8 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
         if temperature == 0:
             return torch.argmax(logits, dim=-1).to(prompt.dtype)
         s = truncate_top_k(logits.float() / temperature, top_k)
-        probs = torch.softmax(s, dim=-1)
-        # categorical draw: argmax of p / E with E ~ Exp(1); a token of
-        # probability 0 is never drawn, even where E is 0
-        e = torch.empty_like(probs).exponential_(generator=generator)
-        score = (probs / e).masked_fill(probs == 0, -1.0)
-        return torch.argmax(score, dim=-1).to(prompt.dtype)
+        return categorical(torch.softmax(s, dim=-1),
+                           generator).to(prompt.dtype)
 
     if cfg.window > 0:
         # ring cache: fill one slot at a time (the wrap layout is
