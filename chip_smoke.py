@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``tpu_dra_driver_torch``).
 
-Drives the port's serving, generation and training paths, and the
+Drives the port's serving, generation and training paths, the
 mixture-of-experts, Adafactor, LoRA, masked-LM encoder, encoder-decoder,
-beam-search and speculative-decoding paths, on one CUDA card and checks
-them; imports no JAX. Phases, each of which fails the
+beam-search and speculative-decoding paths, the input pipeline,
+checkpoints, profiling and the single-device benchmarks, on one CUDA
+card and checks them; imports no JAX. Phases, each of which fails the
 run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
@@ -137,12 +138,41 @@ run when it fails:
    early-exit output exact or a near-tie), with the host reads per call;
    ``speculative_sample`` with draft = target at the generation widths,
    in f32 (every proposal accepted, asserted) and in bf16;
-21. paged kernel per launch: B4's split and merge kernels timed apart
+21. data, checkpoint and profiling: ``prefetch_to_device`` on the card
+   (48 batches, each read after slow products on the consumer's stream,
+   every device sum equal to the host's; the copies on a stream other
+   than the consumer's, by ``trace_to``'s trace; an abandoned loop
+   leaves no producer thread), then the full-width training state
+   (369.1M parameters, AdamW) saved with ``save_train_state`` and
+   restored onto the card and onto the CPU, both bit-equal, one step
+   from the restored state equal to the continuation's loss and
+   parameters bit for bit, and ``trace_to`` around one training step
+   (its ``annotate`` span and B1-B3 in the trace);
+22. attention benchmarks: B1-B3 at the flash benchmarks' causal MHA
+   shape (b 4, h 8, t 2048, d 128) as in phase 4, and at the
+   long-context window shape (b 1, h 8, t 16384, window 2048, d 128):
+   B1 row by row against the oracle in f32 in row blocks at the start,
+   middle and end (a tile of the band left out shown to break the
+   allowance), all three against their plain versions over the whole
+   shape, timed with SDPA (an explicit band mask, its backend printed);
+   the gradients held in full at t 8192; then
+   ``flash_attention_tflops``, ``flash_attention_train_tflops`` and the
+   two long-context benchmarks (3 runs) at their reference defaults,
+   launches counted, and ``matmul_tflops_steady(m=8192)`` against
+   ``device_peak_tflops()``;
+23. real-data speculative decoding: the reference bench's
+   ``early_exit_real_data_tokens_per_sec(b=1, gamma=8, gen=256,
+   train_steps=600)`` on the card's stdlib, its near-tie rule raising on
+   any other divergence;
+24. paged kernel per launch: B4's split and merge kernels timed apart
    under ``torch.profiler`` at phase 3's serving read. Every use of the
    profiler follows the wall-clock readings of its phase.
 
-It then prints one ``{"kernels": [...]}`` line and, last, the device
-line ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
+Phases 1-2 run in the script's own process, phases 3-20 and 21-24 in
+two processes of the script that it starts one after the other (see
+``HALF``). It then prints one ``{"kernels": [...]}`` line, the card's
+name and power limit and, last, the device line ``{"ok": true,
+"device": {...}}``. Without a CUDA card it exits
 non-zero and prints no result.
 
 Run from the repo root: ``python3 chip_smoke.py``.
@@ -154,8 +184,12 @@ import contextlib
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -166,6 +200,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dra_driver_torch import entry
+from tpu_dra_driver_torch.workloads import data
 from tpu_dra_driver_torch.workloads.models import beam as bm
 from tpu_dra_driver_torch.workloads.models import encoder as enc
 from tpu_dra_driver_torch.workloads.models import lora
@@ -185,9 +220,16 @@ from tpu_dra_driver_torch.workloads.models.transformer import (
 )
 from tpu_dra_driver_torch.workloads.ops import _build
 from tpu_dra_driver_torch.workloads.ops import attention as fa
+from tpu_dra_driver_torch.workloads.ops import collectives as co
 from tpu_dra_driver_torch.workloads.ops import decode_attention as da
 from tpu_dra_driver_torch.workloads.ops import paged_attention as pa
 from tpu_dra_driver_torch.workloads.utils import timing
+from tpu_dra_driver_torch.workloads.utils.checkpoint import (
+    abstract_like, restore_train_state, save_train_state,
+)
+from tpu_dra_driver_torch.workloads.utils.profiling import (
+    annotate, latest_trace, trace_to,
+)
 from tpu_dra_driver_torch.workloads.utils.graphs import StepGraph
 
 DEV = "cuda"
@@ -469,6 +511,34 @@ DECODE_SPEC_F32 = (512, 300)
 # timed
 SPEC_FULL = dict(b=1, gamma=8, gen=256)
 SPEC_BENCH_CALLS = 5
+# prefetch_to_device on the card: host batches of f32 integers (exact
+# sums), and the matrix products of 4096^2 the consumer runs on its
+# stream before it reads each batch (a read that a later copy could
+# overtake if the batch's memory were handed back too early)
+PREFETCH_BATCHES = 48
+PREFETCH_SHAPE = (1024, 2048)
+PREFETCH_SLOW_PRODUCTS = 8
+# the long-context flash benchmarks' shape (bench.py:2177-2200, the
+# reference's defaults): b 1, h 8 (MHA), t 16384, window 2048, d 128
+FLASH_LONG = (1, 8, 8, 16384, 16384, 128)
+FLASH_LONG_WINDOW = 2048
+# B1 held against the f32 oracle in blocks of rows at the start, the
+# middle and the end of the sequence
+FLASH_LONG_BLOCK = 1024
+FLASH_LONG_BLOCKS = (0, 7680, 15360)
+# ... and every output of B1-B3 at the whole shape (the gradients' plain
+# versions and f32 reference fit the card at t 16384: 44.8 GiB at the
+# peak), with these 64 x 64 tiles of the band left out: the middle rows
+# 1024 columns back, the last rows 1984 back
+FLASH_LONG_TILES = ((8192, 7168), (16320, 14336))
+# the flash benchmarks' causal shape (flash_attention_tflops and
+# flash_attention_train_tflops defaults): b 4, h 8 (MHA), t 2048, d 128
+FLASH_MHA = (4, 8, 8, 2048, 2048, 128)
+# the reference bench's runs of the long-context benchmarks (bench.py:45)
+LONG_CTX_RUNS = 3
+MATMUL_M = 8192
+# the reference bench's real-data early-exit call (bench.py:2433)
+REAL_DATA_BENCH = dict(b=1, gamma=8, gen=256, train_steps=600)
 # profiler ranges the MoE step's split attributes kernels by
 MOE_RANGE, BLOCK_RANGE, OPT_RANGE = "smoke:moe", "smoke:block", "smoke:opt"
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "wgmma")
@@ -1004,8 +1074,9 @@ def _tile_omission(allow, operands, row0, col0, n, mask=None):
     vr = v32[:, :, cols].repeat_interleave(rep, dim=1)
     qt, dot = q32[:, :, rows], do32[:, :, rows]
     mask = mask or {}
-    vis = fa._visible(t, k32.shape[2], mask.get("causal", True), None, 0,
-                      mask.get("prefix"), q32.device)[rows][:, cols]
+    vis = fa._visible(t, k32.shape[2], mask.get("causal", True),
+                      mask.get("window"), 0, mask.get("prefix"),
+                      q32.device)[rows][:, cols]
     s = torch.einsum("bhid,bhjd->bhij", qt, kr) / math.sqrt(d)
     p = torch.where(vis, torch.exp(s - lse[:, :, rows, None]), 0.0)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dot, vr)
@@ -1080,12 +1151,13 @@ def _flash_full_width(gen, mask: dict, shape=None,
                       tiles=FLASH_MUTANT_TILES) -> dict:
     """B1-B3 at a full-width shape (b, h, h_kv, t, tkv, d) in bf16 under
     ``mask`` (causal when empty, bidirectional with ``prefix`` = t, no
-    mask with ``causal=False``); the shape defaults to the training
-    configuration's: every output row against the f32 reference within
-    its allowance, a 64 x 64 tile at each of ``tiles`` left out shown to
-    break that allowance, then each kernel timed with a cold L2 against
-    its plain version, SDPA (causal or not, as the mask) and its bound
-    from this run's visible pairs."""
+    mask with ``causal=False``, a band with ``window``); the shape
+    defaults to the training configuration's: every output row against
+    the f32 reference within its allowance, a 64 x 64 tile at each of
+    ``tiles`` left out shown to break that allowance, then each kernel
+    timed with a cold L2 against its plain version, SDPA (causal or not,
+    as the mask; with a window, an explicit band mask) and its bound
+    from this run's visible pairs, returned by kernel name."""
     if shape is None:
         b, h, h_kv, t, d = FLASH_FULL
         shape = (b, h, h_kv, t, t, d)
@@ -1156,24 +1228,45 @@ def _flash_full_width(gen, mask: dict, shape=None,
     # yardsticks only (the port never calls them): SDPA's forward, and
     # its backward, one time for dq, dk and dv together; causal, or over
     # every pair when the prefix covers the sequence or there is no mask
-    causal = mask.get("causal", True) and "prefix" not in mask
+    # (the bound below counts the same visible pairs)
+    vis = fa._visible(t, tkv, mask.get("causal", True), mask.get("window"),
+                      0, mask.get("prefix"), DEV)
+    if "window" in mask:
+        # SDPA has no band: an explicit [t, tkv] mask, over every pair
+        sdpa = {"attn_mask": vis, "enable_gqa": True}
+    else:
+        sdpa = {"is_causal": mask.get("causal", True) and "prefix" not in mask,
+                "enable_gqa": True}
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True), flush=flush)
+        q, k, v, **sdpa), flush=flush)
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
-                                             enable_gqa=True)
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, **sdpa)
     lib_err = (lib_out.float() - out.float()).abs().max().item()
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (qr, kr, vr), dout, retain_graph=True), flush=flush)
     del lib_out
     library_ms = {"flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
                   "flash_backward_dkv": lib_bwd}
+    if "window" in mask:
+        print(f"SDPA with an explicit band mask ran "
+              f"{_sdpa_backend(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa))}"
+              f" (a masked SDPA is not its flash kernel)")
 
-    # bounds from this run's inputs: each input read once, each output
-    # written once; 4 d (B1), 6 d (B2), 8 d (B3) flops per visible pair
-    vis = fa._visible(t, tkv, mask.get("causal", True), None, 0,
-                      mask.get("prefix"), DEV)
     pairs = b * h * int(vis.sum().item())
+    err = {"flash_forward": errs["out"][0],
+           "flash_backward_dq": errs["dq"][0],
+           "flash_backward_dkv": max(errs["dk"][0], errs["dv"][0])}
+    result = _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms)
+    print(f"SDPA backward is one time for dq, dk and dv together; "
+          f"max |SDPA out - B1 out| {lib_err:.2e}")
+    return result
+
+
+def _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms) -> dict:
+    """{kernel: its reading} with the bound from this run's inputs (each
+    input read once, each output written once; 4 d (B1), 6 d (B2), 8 d
+    (B3) flops per visible pair), printed a line each."""
+    b, h, t, d = q.shape
     qb, kvb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rowb = b * h * t * 4                              # lse or D, f32
     work = {
@@ -1186,19 +1279,17 @@ def _flash_full_width(gen, mask: dict, shape=None,
         n_bytes, n_flops = work[name]
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOP_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
-        err = {"flash_forward": errs["out"][0],
-               "flash_backward_dq": errs["dq"][0],
-               "flash_backward_dkv": max(errs["dk"][0], errs["dv"][0])}[name]
         result[name] = {
-            "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms[name],
-            "library_ms": library_ms[name], "bound_ms": bound_ms,
+            "max_abs_err": err[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "library_ms": library_ms[name],
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        lib = "not measured" if library_ms[name] is None \
+            else f"{library_ms[name]:.4f} ms"
         print(f"{name}: kernel {ms[name]:.4f} ms, plain "
-              f"{plain_ms[name]:.4f} ms, SDPA {library_ms[name]:.4f} ms; "
+              f"{plain_ms[name]:.4f} ms, SDPA {lib}; "
               f"bound {bound_ms:.4f} ms ({n_bytes} bytes, {n_flops} flops); "
               f"kernel at {100 * bound_ms / ms[name]:.1f}% of bound")
-    print(f"SDPA backward is one time for dq, dk and dv together; "
-          f"max |SDPA out - B1 out| {lib_err:.2e}")
     return result
 
 
@@ -3038,34 +3129,479 @@ def full_width_speculative_phase(card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
-    # fp32 products in full fp32 on the card, as on the CPU
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same dtype, shape and bytes (NaN payloads and signed zeros
+    included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    if a.numel() == 0:
+        return True
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
-    phase("card")
+
+def _prefetch_source(n: int):
+    """n host batches of PREFETCH_SHAPE float32 integers (exact sums in
+    f64 on either side) and their sums."""
+    base = np.arange(np.prod(PREFETCH_SHAPE), dtype=np.int64)
+    batches, sums = [], []
+    for i in range(n):
+        x = ((base * (i + 3)) % 2003 - 1001).astype(np.float32)
+        batches.append(x.reshape(PREFETCH_SHAPE))
+        sums.append(float(x.astype(np.float64).sum()))
+    return batches, sums
+
+
+def _trace_events(log_dir: str) -> list:
+    run = latest_trace(log_dir)
+    if run is None:
+        raise AssertionError(f"latest_trace found no run under {log_dir}")
+    with open(os.path.join(run, "trace.json")) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _prefetch_checks(card: str) -> None:
+    """The copy/consumer race, the side stream and an abandoned loop."""
+    batches, sums = _prefetch_source(PREFETCH_BATCHES)
+    w = torch.randn((4096, 4096), generator=torch.Generator().manual_seed(2)
+                    ).to(DEV, torch.bfloat16) / 64
+    got = []
+    start = time.perf_counter()
+    for x in data.prefetch_to_device(iter(batches), size=2, device=DEV):
+        # a slow kernel first, then the read of the batch, both on the
+        # consumer's stream: a batch whose memory a later copy reused
+        # before this read would give another sum
+        y = w
+        for _ in range(PREFETCH_SLOW_PRODUCTS):
+            y = y @ w
+        got.append(x.double().sum())
+    got = torch.stack(got).cpu().tolist()
+    wall = time.perf_counter() - start
+    bad = [i for i, (a, b) in enumerate(zip(got, sums)) if a != b]
+    print(f"{card}: prefetch_to_device, {PREFETCH_BATCHES} batches of "
+          f"{PREFETCH_SHAPE} f32 ({4 * np.prod(PREFETCH_SHAPE) >> 20} MiB), "
+          f"{PREFETCH_SLOW_PRODUCTS} products of 4096^2 per batch before "
+          f"its read: {wall:.2f} s; device sums equal to the host's for "
+          f"{len(got) - len(bad)} of {len(sums)}")
+    if len(got) != len(sums) or bad:
+        raise AssertionError(f"prefetched batches {bad} read other values "
+                             f"than the host's")
+
+    # the copies on the producer's stream, not the consumer's (the whole
+    # loop once more: a short trace may record none of the card's events)
+    log_dir = tempfile.mkdtemp()
+    try:
+        with trace_to(log_dir):
+            with annotate("smoke:prefetch"):
+                for x in data.prefetch_to_device(iter(batches), size=2,
+                                                 device=DEV):
+                    y = w
+                    for _ in range(PREFETCH_SLOW_PRODUCTS):
+                        y = y @ w
+                    x.square().sum()
+            torch.cuda.synchronize()
+        events = _trace_events(log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    copies = {e.get("args", {}).get("stream") for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")}
+    kernels = {e.get("args", {}).get("stream") for e in events
+               if e.get("cat") == "kernel"}
+    spans = [e for e in events if e.get("name") == "smoke:prefetch"]
+    print(f"  traced: host-to-device copies on stream(s) {sorted(copies)}, "
+          f"the consumer's kernels on {sorted(kernels)}; span "
+          f"'smoke:prefetch' {len(spans)} time(s)")
+    if not copies or not kernels or copies & kernels or not spans:
+        raise AssertionError("the prefetch copies did not run on a stream "
+                             "of their own, or the trace lacks them")
+
+    # a consumer that leaves early releases the producer
+    it = data.prefetch_to_device(iter(batches), size=2, device=DEV)
+    for i, _ in enumerate(it):
+        if i == 1:
+            break
+    it.close()
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and any(
+            t.name == data.PRODUCER_THREAD and t.is_alive()
+            for t in threading.enumerate()):
+        time.sleep(0.02)
+    alive = [t for t in threading.enumerate()
+             if t.name == data.PRODUCER_THREAD and t.is_alive()]
+    print(f"  abandoned after 2 of {len(batches)} batches: "
+          f"{len(alive)} producer thread(s) alive")
+    if alive:
+        raise AssertionError("an abandoned prefetch loop left its producer "
+                             "running")
+
+
+def _state_tensors(tree) -> list:
+    """(name, tensor) of every tensor of a train-state tree, optimizer
+    moments and step counts by their state_dict names."""
+    out = []
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        elif isinstance(node, (tt.OptState, tt.AdafactorState)):
+            for k, v in node.state_dict().items():
+                if isinstance(v, torch.Tensor):
+                    out.append((prefix + k, v))
+        elif isinstance(node, torch.Tensor):
+            out.append((prefix[:-1], node))
+
+    walk(tree, "")
+    return out
+
+
+def _checkpoint_check(card: str, params, state, step, batch) -> None:
+    """The full-width train state saved, restored onto the card and onto
+    the CPU (both bit-equal), and one step from the restored state equal
+    to the continuation's, loss and parameters bit for bit."""
+    tree = {"params": params, "opt": state, "step": 2,
+            "rng": torch.Generator().manual_seed(5)}
+    tensors = _state_tensors(tree)
+    n_bytes = sum(t.numel() * t.element_size() for _, t in tensors)
+    ck_dir = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_train_state(ck_dir, 2, tree)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+        restored, seconds = {}, {}
+        for label, where in (("card", DEV), ("CPU", "cpu")):
+            t0 = time.perf_counter()
+            restored[label] = restore_train_state(
+                ck_dir, abstract_like(tree, device=where))
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    print(f"{card}: checkpoint of the full-width training state "
+          f"({tt.param_count(params) / 1e6:.1f}M params, AdamW, "
+          f"{len(tensors)} tensors, {n_bytes / 1e9:.3f} GB): "
+          f"{written / 1e9:.3f} GB written in {save_s:.2f} s "
+          f"({written / save_s / 1e9:.2f} GB/s); restored onto the card in "
+          f"{seconds['card']:.2f} s, onto the CPU in {seconds['CPU']:.2f} s")
+    for label, back in restored.items():
+        where = DEV if label == "card" else "cpu"
+        got = dict(_state_tensors(back))
+        # AdamW's step counts live on the CPU wherever its params are
+        bad = [name for name, t in tensors
+               if name not in got or got[name].device.type
+               != ("cpu" if name.endswith(".step")
+                   else torch.device(where).type)
+               or not _bits_equal(t.cpu(), got[name].cpu())]
+        if back["step"] != 2 or not torch.equal(
+                back["rng"].get_state(), tree["rng"].get_state()):
+            bad.append("step/rng")
+        print(f"  restored onto the {label}: {len(tensors) - len(bad)} of "
+              f"{len(tensors)} tensors bit-equal, on {where}")
+        if bad:
+            raise AssertionError(f"checkpoint restored onto the {label} "
+                                 f"differs in {bad[:5]}")
+    del restored["CPU"]
+    back = restored.pop("card")
+
+    _, _, loss_cont = step(params, state, batch)
+    _, _, loss_res = step(back["params"], back["opt"], batch)
+    same = [_bits_equal(a, b) for a, b in zip(
+        tt._param_leaves(params), tt._param_leaves(back["params"]))]
+    moments = [_bits_equal(a, b) for (_, a), (_, b) in zip(
+        _state_tensors(state), _state_tensors(back["opt"]))]
+    print(f"  one step on: continuation loss {loss_cont.item()!r}, resumed "
+          f"{loss_res.item()!r}; parameters bit-equal {sum(same)} of "
+          f"{len(same)}, optimizer tensors {sum(moments)} of {len(moments)}")
+    if loss_cont.item() != loss_res.item() or not all(same) \
+            or not all(moments):
+        raise AssertionError("the resumed step differs from the "
+                             "continuation")
+
+
+def data_checkpoint_profiling_phase(card: str) -> None:
+    _prefetch_checks(card)
+
+    t0 = time.perf_counter()
+    params = init_params(FULL_TRAIN, 0, device=DEV)
+    b, t = FULL_TRAIN_BATCH
+    tokens = torch.randint(0, FULL_TRAIN.vocab, (b, t),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    batch = (tokens, tokens)
+    step, init = tt.make_train_step(FULL_TRAIN,
+                                    optimizer=tt.default_optimizer(),
+                                    attn_fn=fa.flash_attention)
+    state = init(params)
+    # two steps: the warm-up's first rate is 0, its second is not
+    for _ in range(2):
+        params, state, loss = step(params, state, batch)
+    print(f"{card}: the training configuration, two steps in "
+          f"{time.perf_counter() - t0:.1f} s (loss {loss.item():.4f})")
+    _checkpoint_check(card, params, state, step, batch)
+
+    # one full-width step under trace_to, with its span and B1-B3
+    log_dir = tempfile.mkdtemp()
+    try:
+        with trace_to(log_dir):
+            with annotate("smoke:train_step"):
+                step(params, state, batch)
+        run = latest_trace(log_dir)
+        size = os.path.getsize(os.path.join(run, "trace.json"))
+        events = _trace_events(log_dir)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    names = [e.get("name", "") for e in events]
+    found = {frag: sum(frag in n for n in names)
+             for frag in ("smoke:train_step", "flash_fwd_kernel",
+                          "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    print(f"  trace_to around one step: {os.path.basename(run)}, "
+          f"{size / 1e6:.1f} MB, {len(events)} events; " + ", ".join(
+              f"{k} x{v}" for k, v in found.items()))
+    if not all(found.values()):
+        raise AssertionError(f"the trace lacks {found}")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def _sdpa_backend(fn, calls: int = 10) -> str:
+    """The SDPA backend that ran ``fn``, from its kernels' names over
+    ``calls`` calls under the profiler (cuDNN's names also say "flash",
+    so it is looked for first), and its longest kernel's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    names = [e.key.lower() for e in kernels]
+    backend = "math"
+    for name, frags in (("cuDNN", ("cudnn",)),
+                        ("memory-efficient", ("efficient", "mem_eff",
+                                              "fmha")),
+                        ("flash", ("flash",))):
+        if any(f in n for n in names for f in frags):
+            backend = name
+            break
+    top = kernels[0].key[:90] if kernels else "no kernel"
+    return f"the {backend} backend (longest kernel: {top})"
+
+
+def _window_forward_blocks(q, k, v, out, lse, window) -> None:
+    """B1's output at the long window shape in row blocks at the start,
+    the middle and the end: each row within its allowance against
+    ``attention_reference`` in f32 (full K/V, ``row_offset``), lse within
+    TOL_FLASH_LSE of the f32 one, and a 64 x 64 tile of the band left out
+    of each block's last rows shown to break that allowance."""
+    k32, v32 = k.float(), v.float()
+    d, n = q.shape[-1], FLASH_MUTANT_TILE
+    for r0 in FLASH_LONG_BLOCKS:
+        rows = slice(r0, r0 + FLASH_LONG_BLOCK)
+        qb = q[:, :, rows]
+        mask = dict(causal=True, window=window, row_offset=r0)
+        ref = fa.attention_reference(qb.float(), k32, v32, **mask)
+        _, ref_lse = fa._flash_forward_plain(qb.float(), k32, v32,
+                                             window=window, row_offset=r0)
+        plain, _ = fa._flash_forward_plain(qb, k, v, window=window,
+                                           row_offset=r0)
+        got = _bf16_reading(out[:, :, rows], plain, ref)
+        lse_err = (lse[:, :, rows] - ref_lse).abs().max().item()
+        allow = _allowance(plain, ref)
+        # tiles of the last 64 rows: on the diagonal, and at the middle
+        # of the band
+        i0 = FLASH_LONG_BLOCK - n
+        omitted = []
+        for c0 in (r0 + i0, r0 + i0 - window // 2):
+            if c0 < 0:
+                continue
+            qt = qb[:, :, i0:].float()
+            s = torch.einsum("bhid,bhjd->bhij", qt,
+                             k32[:, :, c0:c0 + n]) / math.sqrt(d)
+            vis = fa._visible(n, n, True, window, r0 + i0 - c0, None, DEV)
+            p = torch.where(vis, torch.exp(s - ref_lse[:, :, i0:, None]),
+                            0.0)
+            c = torch.einsum("bhij,bhjd->bhid", p, v32[:, :, c0:c0 + n])
+            omitted.append((c0, (c.abs().amax(-1)
+                                 / allow[:, :, i0:]).max().item()))
+        print(f"  rows {r0}..{r0 + FLASH_LONG_BLOCK - 1}: out worst row "
+              f"{got['kernel']:.3e} (bf16 plain {got['plain']:.3e}), "
+              f"{got['over']:.3f} of its allowance; lse {lse_err:.2e}; "
+              + ", ".join(f"tile {r0 + i0},{c0} left out {m:.1f}"
+                          for c0, m in omitted))
+        if not got["over"] <= 1.0 or not lse_err <= TOL_FLASH_LSE:
+            raise AssertionError(f"B1 at the long window shape, rows "
+                                 f"{r0}..: {got['over']} of its allowance, "
+                                 f"lse {lse_err}")
+        if not omitted or not min(m for _, m in omitted) > 1.0:
+            raise AssertionError(f"the allowance of rows {r0}.. would not "
+                                 f"see a tile left out ({omitted})")
+
+
+def _flash_window_long(card: str, gen) -> dict:
+    """B1-B3 at the long-context benchmarks' shape under the window mask:
+    B1 held row block by row block against the f32 oracle, then the
+    full-width check of phase 4 at the whole shape (the gradients too:
+    their plain versions and f32 reference fit the card at this t), timed
+    against the plain versions, SDPA with an explicit band mask and the
+    bounds."""
+    b, h, h_kv, t, _, d = FLASH_LONG
+    w = FLASH_LONG_WINDOW
+    q, k, v, _, _ = _flash_inputs(FLASH_LONG, torch.bfloat16, gen)
+    out, lse = fa.flash_forward(q, k, v, window=w)
+    print(f"{card}: B1-B3 at b {b}, h {h} (MHA), t {t}, window {w}, d {d}, "
+          f"bf16: B1 against attention_reference in f32 (full K/V, "
+          f"row_offset) in {FLASH_LONG_BLOCK}-row blocks")
+    _window_forward_blocks(q, k, v, out, lse, w)
+    del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{card}: B1-B3 at that shape in full, every output row against "
+          f"the f32 reference (the gradients too: at t {t} their plain "
+          f"versions fit the card)")
+    readings = _flash_full_width(gen, {"window": w}, shape=FLASH_LONG,
+                                 tiles=FLASH_LONG_TILES)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    return readings
+
+
+def _counted(fn, **kwargs):
+    """``fn(**kwargs)`` with B1-B3's launches counted from zero: (result,
+    launches)."""
+    wrappers = _flash_wrappers()
+    for wr in wrappers.values():
+        wr.launches = 0
+    t0 = time.perf_counter()
+    out = fn(**kwargs)
+    launches = {name: wr.launches for name, wr in wrappers.items()}
+    print(f"  {fn.__name__}({', '.join(f'{k}={v}' for k, v in kwargs.items())}"
+          f"), {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v}" for k, v in out.items())
+          + f"; launches {launches}")
+    for key, value in out.items():
+        if key != "shape" and not all(
+                math.isfinite(x) and x > 0
+                for x in (value if isinstance(value, list) else [value])):
+            raise AssertionError(f"{fn.__name__}: {key} = {value}")
+    return out, launches
+
+
+def attention_benchmarks_phase(card: str) -> dict:
+    """B1-B3 held at the flash benchmarks' causal MHA shape and at the
+    long-context window shape (the gradients in full at the longest t
+    whose plain backward fits), then the four benchmarks at their
+    reference defaults, each kernel's launches counted over them, and the
+    matrix-product rate against the card's peak. Returns the kernels'
+    readings by shape."""
+    gen = torch.Generator().manual_seed(21)
+    b, h, _, t, _, d = FLASH_MHA
+    print(f"{card}: B1-B3 at the flash benchmarks' shape, b {b}, h {h} "
+          f"(MHA), t {t}, d {d}, causal")
+    mha = _flash_full_width(gen, {}, shape=FLASH_MHA,
+                            tiles=FLASH_MUTANT_TILES)
+    torch.cuda.empty_cache()
+    long = _flash_window_long(card, gen)
+    torch.cuda.empty_cache()
+
+    print(f"{card}: the flash benchmarks at their reference defaults "
+          f"(bench.py:2177-2200; TFLOP/s by device-busy time)")
+    fwd, l_fwd = _counted(fa.flash_attention_tflops)
+    train, l_train = _counted(fa.flash_attention_train_tflops)
+    lfwd, l_lfwd = _counted(fa.flash_attention_long_context_tflops,
+                            n_runs=LONG_CTX_RUNS)
+    ltrain, l_ltrain = _counted(
+        fa.flash_attention_long_context_train_tflops, n_runs=LONG_CTX_RUNS)
+    launches = {
+        "mha": {n: l_fwd[n] + l_train[n] for n in l_fwd},
+        "long": {n: l_lfwd[n] + l_ltrain[n] for n in l_lfwd},
+    }
+    if any(v == 0 for shape in launches.values() for v in shape.values()):
+        raise AssertionError(f"a flash kernel was not launched by the "
+                             f"benchmarks: {launches}")
+    for label, r, per, shape in (
+            ("forward, MHA", fwd["flash_attn_tflops"], "flash_forward", mha),
+            ("forward, window", lfwd["flash_attn_long_ctx_tflops"],
+             "flash_forward", long)):
+        print(f"  {label}: {r:.1f} TFLOP/s of useful work; B1 alone at "
+              f"{shape[per]['ms']:.4f} ms = "
+              f"{100 * shape[per]['bound_ms'] / shape[per]['ms']:.1f}% of "
+              f"its bound")
+    mm = co.matmul_tflops_steady(m=MATMUL_M)
+    peak = co.device_peak_tflops()
+    share = "not known" if peak is None else f"{100 * mm.tflops / peak:.1f}%"
+    print(f"{card}: {mm}; device_peak_tflops() {peak}: {share} of the peak")
+    if not mm.tflops > 0:
+        raise AssertionError(f"matmul_tflops_steady: {mm}")
+    return {"mha": (mha, launches["mha"]), "long": (long, launches["long"])}
+
+
+def full_width_real_data_phase(card: str) -> None:
+    """The reference bench's real-data early-exit call (bench.py:2433):
+    the byte-level target trained on the card's stdlib, then measured
+    on held-out prompts, B5's launches and the host reads counted."""
+    print(f"{card}: B5 at this bench's draft read (b = 1, 16 heads over 4, "
+          f"hd 128, 394 slots rounded to 512) is held alone in the "
+          f"speculative phase (DECODE_SPEC)")
+    da.flash_decode_attention.launches = 0
+    start = time.perf_counter()
+    with _rounds_without_waits() as rounds:
+        r = spec.early_exit_real_data_tokens_per_sec(device=DEV,
+                                                     **REAL_DATA_BENCH)
+    wall = time.perf_counter() - start
+    print(f"{card}: early_exit_real_data_tokens_per_sec("
+          + ", ".join(f"{k}={v}" for k, v in REAL_DATA_BENCH.items())
+          + f"), {wall:.1f} s:")
+    for key in ("speedup", "spec_tokens_per_sec", "plain_tokens_per_sec",
+                "mean_accepted", "draft_cost_ratio",
+                "perfect_acceptance_bound", "per_prompt", "train_steps",
+                "final_train_loss", "corpus_bytes", "holdout_docs",
+                "exact_greedy", "divergence", "shape"):
+        print(f"  {key}: {r[key]}")
+    print(f"  rounds (host reads, each replay under sync-debug mode) "
+          f"{rounds.calls}; B5 launches {da.flash_decode_attention.launches}")
+    if r["train_steps"] != REAL_DATA_BENCH["train_steps"] \
+            or not math.isfinite(r["final_train_loss"]) \
+            or not 0 <= r["mean_accepted"] <= REAL_DATA_BENCH["gamma"] \
+            or da.flash_decode_attention.launches == 0 \
+            or not (r["exact_greedy"] or r["divergence"]):
+        raise AssertionError("the real-data bench's result is malformed")
+
+
+# phases 3-20 and 21-24 run in two processes of this script, one after
+# the other, started by main() with this argument and the half's number;
+# each prints its kernels' readings on a line that starts with READINGS.
+# In one process, torch.profiler sessions late in a long run recorded
+# none of the card's events when they were short (torch 2.11, H100:
+# phase 21's first trace after phases 3-20; long sessions kept theirs;
+# cause not found), and phase 21's traces, phase 22's SDPA backend and
+# benchmark timings rest on such sessions
+HALF = "--half"
+READINGS = "chip_smoke readings: "
+
+
+def _card(quiet: bool = False) -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    if not quiet:
+        print(smi)
+    return smi
 
-    phase("build")
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        built = list(pool.map(_build.build, KERNEL_SOURCES))
-    for path, seconds, log in built:
-        print(f"{path.name}: nvcc {seconds:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
-                print("  " + line.strip())
 
+def first_half(smi: str) -> dict:
+    """Phases 3-20: the serving, generation and training paths and the
+    families on them. Returns the kernels' readings."""
     phase("paged kernel vs plain version, full-width shapes")
     gen = torch.Generator().manual_seed(0)
     kern = kernel_phase(gen)
@@ -3125,48 +3661,123 @@ def main() -> int:
 
     phase("full-width speculative decoding")
     full_width_speculative_phase(smi)
+    return {"paged": kern, "paged_launches": served["launches"],
+            "flash": flash, "flash_launches": launches, "decode": decode,
+            "decode_launches": decode_launches}
+
+
+def second_half(smi: str) -> dict:
+    """Phases 21-24: the input pipeline, checkpoint and profiling, the
+    attention benchmarks, the real-data speculative bench and B4 per
+    launch. Returns the benchmarks' kernel readings."""
+    phase("data, checkpoint and profiling on the card against the CPU")
+    data_checkpoint_profiling_phase(smi)
+
+    phase("full-width attention benchmarks")
+    benches = attention_benchmarks_phase(smi)
+
+    phase("full-width real-data speculative decoding")
+    full_width_real_data_phase(smi)
 
     phase("paged kernel per launch")
-    paged_launch_phase(gen)
+    paged_launch_phase(torch.Generator().manual_seed(0))
+    return {"benches": benches}
 
-    rows = [{
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "tpu_dra_driver_torch/workloads/csrc/paged_attention.cu",
-        "replaces": "tpu_dra_driver/workloads/ops/paged_attention.py:112",
-        "launches": served["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"],
-    }]
+
+def _run_half(which: str) -> dict:
+    """Runs phases ``which`` ("1": 3-20, "2": 21-24) in a new process of
+    this script, its output passed through; returns its readings, or
+    raises when it failed."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), HALF, which],
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, text=True)
+    readings = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(READINGS):
+                readings = json.loads(line[len(READINGS):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or readings is None:
+        raise AssertionError(f"the phases of half {which} failed (exit "
+                             f"code {rc})")
+    return readings
+
+
+def _half_main(which: str) -> int:
+    # fp32 products in full fp32 on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _card(quiet=True)
+    readings = (first_half if which == "1" else second_half)(smi)
+    print(READINGS + json.dumps(readings), flush=True)
+    return 0
+
+
+def _kernel_row(name, source, replaces, launches, reading) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"tpu_dra_driver_torch/workloads/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            **{k: reading[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    if len(sys.argv) == 3 and sys.argv[1] == HALF:
+        return _half_main(sys.argv[2])
+    t_start = time.perf_counter()
+
+    phase("card")
+    smi = _card()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    phase("build")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(_build.build, KERNEL_SOURCES))
+    for path, seconds, log in built:
+        print(f"{path.name}: nvcc {seconds:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                print("  " + line.strip())
+
+    first = _run_half("1")
+    second = _run_half("2")
+
+    rows = [_kernel_row("paged_decode_attention", "paged_attention.cu",
+                        "tpu_dra_driver/workloads/ops/paged_attention.py:112",
+                        first["paged_launches"], first["paged"])]
     for name, replaces in FLASH_KERNELS:
-        row = flash[name]
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source":
-                "tpu_dra_driver_torch/workloads/csrc/flash_attention.cu",
-            "replaces": replaces,
-            "launches": launches[name],
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
-        })
-    rows.append({
-        "name": "flash_decode_attention",
-        "route": "cuda",
-        "source": "tpu_dra_driver_torch/workloads/csrc/decode_attention.cu",
-        "replaces": "tpu_dra_driver/workloads/ops/decode_attention.py:73",
-        "launches": decode_launches,
-        **{k: decode[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")},
-    })
+        rows.append(_kernel_row(name, "flash_attention.cu", replaces,
+                                first["flash_launches"][name],
+                                first["flash"][name]))
+    # B1-B3 at the benchmarks' shapes, launches counted over the
+    # benchmarks run at that shape
+    for tag, key in (("flash_attention_tflops+train, b4 h8 t2048 d128 "
+                      "causal", "mha"),
+                     ("long_context+train, b1 h8 t16384 w2048 d128",
+                      "long")):
+        readings, counts = second["benches"][key]
+        for name, replaces in FLASH_KERNELS:
+            rows.append(_kernel_row(f"{name} ({tag})", "flash_attention.cu",
+                                    replaces, counts[name], readings[name]))
+    rows.append(_kernel_row("flash_decode_attention", "decode_attention.cu",
+                            "tpu_dra_driver/workloads/ops/decode_attention.py:73",
+                            first["decode_launches"], first["decode"]))
     print(json.dumps({"kernels": rows}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

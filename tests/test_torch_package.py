@@ -14,10 +14,13 @@ import torch
 
 from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads import convert
+from tpu_dra_driver_torch.workloads import data
 from tpu_dra_driver_torch.workloads.models import seq2seq
 from tpu_dra_driver_torch.workloads.models import serving
 from tpu_dra_driver_torch.workloads.models import speculative
 from tpu_dra_driver_torch.workloads.models import transformer
+from tpu_dra_driver_torch.workloads.ops import attention
+from tpu_dra_driver_torch.workloads.ops import collectives
 from tpu_dra_driver_torch.workloads.ops import paged_attention
 
 # the module, not the ``generate`` function the package exports
@@ -29,10 +32,22 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes",
              "tpu_dra_driver")
 
 
+# the modules of the input pipeline, checkpoints, profiling and the
+# single-device benchmarks, which the walk must hold like the rest
+NEW_MODULES = ("workloads/data.py", "workloads/utils/checkpoint.py",
+               "workloads/utils/profiling.py", "workloads/ops/collectives.py")
+
+
 def _port_files():
     files = sorted((REPO / "tpu_dra_driver_torch").rglob("*.py"))
     assert len(files) >= 10
     return files + [REPO / "chip_smoke.py"]
+
+
+def test_the_walk_holds_the_new_modules():
+    walked = set(_port_files())
+    for rel in NEW_MODULES:
+        assert REPO / "tpu_dra_driver_torch" / rel in walked
 
 
 def _imports(tree):
@@ -86,6 +101,23 @@ def test_default_device_entry_points_raise_without_cuda():
                   speculative.early_exit_decode_tokens_per_sec):
         with pytest.raises(RuntimeError, match="CUDA"):
             bench(cfg=cfg)
+    byte_cfg = transformer.ModelConfig(vocab=256, d_model=8, n_heads=2,
+                                       n_layers=1, d_ff=16, max_seq=8,
+                                       dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speculative.early_exit_real_data_tokens_per_sec(cfg=byte_cfg)
+    for bench in (attention.flash_attention_tflops,
+                  attention.flash_attention_train_tflops,
+                  attention.flash_attention_long_context_tflops,
+                  attention.flash_attention_long_context_train_tflops):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench(b=1, h=1, t=128, d=16)
+    for bench in (collectives.matmul_tflops,
+                  collectives.matmul_tflops_steady):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench(m=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(data.prefetch_to_device(iter([1])))
 
 
 def test_chip_smoke_fails_without_cuda_or_without_the_package(tmp_path):

@@ -513,3 +513,107 @@ def test_sample_validation():
                                    top_k=bad)
     with pytest.raises(ValueError, match="Generator"):
         tsp.speculative_sample(ttp, ttc, ttp, ttc, prompt, 4, None)
+
+
+# the real-data bench's training, port against reference on the same
+# packed batches, in fp32 through AdamW steps: summation order only
+TOL_REAL_DATA_LOSS_REL = 1e-5
+REAL_DATA = dict(vocab=256, d_model=64, n_heads=4, n_kv_heads=2, n_layers=3,
+                 d_ff=128, max_seq=16 + 12 + 4 + 2, use_rope=True)
+REAL_DATA_KEYS = {
+    "spec_tokens_per_sec", "plain_tokens_per_sec", "speedup",
+    "mean_accepted", "gamma", "draft_cost_ratio",
+    "perfect_acceptance_bound", "exact_greedy", "divergence", "shape",
+    "per_prompt", "train_steps", "final_train_loss", "corpus_bytes",
+    "holdout_docs", "exit_aux"}
+
+
+def _write_corpus(root, n_files=60):
+    """Text files of words from a fixed vocabulary, some shorter than a
+    prompt (the bench tiles those)."""
+    rng = np.random.RandomState(0)
+    words = ("def return class import self value the of and to in for "
+             "while if else print list dict").split()
+    for i in range(n_files):
+        n = int(rng.randint(2, 80))
+        (root / f"m{i:03d}.py").write_text(
+            " ".join(words[j] for j in rng.randint(0, len(words), n)))
+    return str(root)
+
+
+def test_real_data_bench_trains_as_the_reference_and_measures(
+        tmp_path, monkeypatch):
+    """At a tiny config on a corpus the test writes, with the reference's
+    initial params: the port's training losses equal the reference's
+    ``make_train_step(adamw(3e-4), exit_layer=draft_layers)`` on the same
+    packed batches, the step count is a multiple of 10, and the result
+    carries the reference's keys."""
+    import itertools
+
+    import optax
+
+    from tpu_dra_driver.workloads import data as jd
+
+    root = _write_corpus(tmp_path)
+    jcfg, tcfg = _cfgs(REAL_DATA)
+    jp = jt.init_params(jcfg, jax.random.PRNGKey(0))
+    monkeypatch.setattr(tsp, "init_params", lambda cfg, key, device="cuda":
+                        convert.params_from_jax(jax.tree.map(np.asarray, jp),
+                                                device=device))
+    losses, prompts = [], []
+    real_step, real_measure = tsp.make_train_step, tsp._measure_early_exit
+
+    def recording_step(*args, **kwargs):
+        step, init = real_step(*args, **kwargs)
+
+        def step_and_record(params, opt, batch):
+            out = step(params, opt, batch)
+            losses.append(out[2].item())
+            return out
+        return step_and_record, init
+
+    def recording_measure(params, cfg, prompt, **kwargs):
+        prompts.append(prompt.numpy())
+        return real_measure(params, cfg, prompt, **kwargs)
+
+    monkeypatch.setattr(tsp, "make_train_step", recording_step)
+    monkeypatch.setattr(tsp, "_measure_early_exit", recording_measure)
+    out = tsp.early_exit_real_data_tokens_per_sec(
+        b=1, prompt_len=16, gen=12, gamma=4, draft_layers=1, train_steps=15,
+        train_batch=4, train_seq=32, iters=1, cfg=tcfg, corpus_roots=[root],
+        n_prompts=3, device="cpu")
+
+    assert out["train_steps"] == len(losses) == 20
+    assert out["train_steps"] % 10 == 0
+    assert out["final_train_loss"] == losses[-1]
+    assert set(out) == REAL_DATA_KEYS
+    train_docs, holdout = jd.byte_corpus(roots=[root])
+    assert out["corpus_bytes"] == sum(len(d) for d in train_docs)
+    assert out["holdout_docs"] == len(holdout)
+    assert len(out["per_prompt"]) == 3 and out["exit_aux"] is True
+    assert out["shape"].endswith(" byte-LM")
+    # fp32: the speculative output is the target's greedy decode exactly
+    assert out["exact_greedy"] and out["divergence"] is None
+    # every prompt is the start of a held-out document (tiled if short)
+    for p in prompts:
+        assert p.shape == (1, 16)
+        assert any(np.array_equal(p[0], np.tile(d, -(-16 // len(d)))[:16])
+                   for d in holdout)
+
+    jstep, jinit = jt.make_train_step(jcfg, optimizer=optax.adamw(3e-4),
+                                      exit_layer=1)
+    jstep = jax.jit(jstep)
+    jopt = jinit(jp)
+    want = []
+    for toks, tgts in itertools.islice(
+            jd.packed_lm_batches(itertools.cycle(train_docs), 4, 32), 20):
+        jp, jopt, loss = jstep(jp, jopt, (jnp.asarray(toks),
+                                          jnp.asarray(tgts)))
+        want.append(float(loss))
+    np.testing.assert_allclose(losses, want, rtol=TOL_REAL_DATA_LOSS_REL)
+
+
+def test_real_data_bench_refuses_a_vocab_below_bytes():
+    _, tcfg = _cfgs(REAL_DATA, vocab=128)
+    with pytest.raises(ValueError, match="vocab >= 256"):
+        tsp.early_exit_real_data_tokens_per_sec(cfg=tcfg, device="cpu")

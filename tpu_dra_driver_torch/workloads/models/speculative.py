@@ -22,6 +22,10 @@ with device-side gathers and scatters at the position. The host reads
 the counters once per round, to decide whether to run another: a call
 makes as many host reads as rounds. The prefill runs eagerly.
 
+``early_exit_real_data_tokens_per_sec`` first trains its byte-level
+target on real text through the input pipeline (``data.py``), then
+measures the early-exit draft on held-out prompts.
+
 The reference compiles its loop once per configuration and shape and
 reuses the program. Here the last call's loop (its caches, its state
 and the captured round, :class:`_SpecLoop`) is kept, and a call with
@@ -32,6 +36,7 @@ loop holds those weights, and its caches, until then.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import replace
 from typing import Dict, Optional
 
@@ -40,6 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dra_driver_torch.workloads import resolve_device
+from tpu_dra_driver_torch.workloads.data import (
+    byte_corpus, packed_lm_batches, prefetch_to_device,
+)
 from tpu_dra_driver_torch.workloads.models import transformer as _tf
 from tpu_dra_driver_torch.workloads.models.generate import (
     block_prefill, categorical, decode_step, generate, init_kv_cache,
@@ -502,6 +510,119 @@ def _measure_early_exit(params: Params, cfg: ModelConfig, prompt,
         "shape": (f"b{b} L{cfg.n_layers} d{cfg.d_model} "
                   f"draft{draft_layers}L-int8 gen{gen}"),
     }
+
+
+def early_exit_real_data_tokens_per_sec(
+        b: int = 1, prompt_len: int = 128, gen: int = 256, gamma: int = 8,
+        draft_layers: int = 2, train_steps: int = 600, train_batch: int = 16,
+        train_seq: int = 512, iters: int = 3,
+        cfg: Optional[ModelConfig] = None,
+        corpus_roots=None, exit_aux: bool = True,
+        n_prompts: int = 5, device="cuda") -> dict:
+    """Early-exit speculative decode on a model trained on real text.
+
+    The byte-level target (vocab 256, seed 0) first trains on
+    ``data.byte_corpus(roots=corpus_roots)`` (by default the running
+    interpreter's stdlib), streamed through ``packed_lm_batches`` (batches
+    of ``train_batch`` x ``train_seq``) and ``prefetch_to_device``, with
+    ``AdamW(3e-4)`` and, with ``exit_aux``, the early-exit auxiliary loss
+    at ``draft_layers`` (the recipe that keeps the shallow trunk a useful
+    draft). Batches are taken in chunks of 10 and a chunk's steps run
+    once it is complete, as the reference's scanned chunk, so
+    ``train_steps`` reports the count actually run (a multiple of 10);
+    the producer is closed before anything is timed.
+
+    Then :func:`_measure_early_exit` runs on ``n_prompts`` prompts from
+    the held-out split (never trained on), picked with a stride over its
+    documents of at least ``prompt_len`` bytes (shorter documents
+    tiled). The headline is the run of median speedup, taken wholesale;
+    ``per_prompt`` and ``divergence`` (with each prompt's index) report
+    every run."""
+    dev = resolve_device(device)
+    cfg = cfg or ModelConfig(vocab=256, d_model=2048, n_heads=16,
+                             n_kv_heads=4, n_layers=8, d_ff=8192,
+                             max_seq=prompt_len + gen + gamma + 2,
+                             use_rope=True)
+    if cfg.vocab < 256:
+        raise ValueError(f"byte-level corpus needs vocab >= 256, "
+                         f"got {cfg.vocab}")
+    params = init_params(cfg, 0, device=dev)
+
+    train_docs, holdout_docs = byte_corpus(roots=corpus_roots)
+    corpus_bytes = int(sum(len(d) for d in train_docs))
+
+    train_step, opt_init = make_train_step(
+        cfg, optimizer=AdamW(3e-4),
+        exit_layer=draft_layers if exit_aux else None)
+    opt_state = opt_init(params)
+
+    chunk = 10
+    batches = prefetch_to_device(
+        packed_lm_batches(itertools.cycle(train_docs),
+                          train_batch, train_seq),
+        size=2, device=dev)
+    steps_run, loss, pending = 0, None, []
+    try:
+        for batch in batches:
+            pending.append(batch)
+            if len(pending) < chunk:
+                continue
+            for bt in pending:
+                params, opt_state, loss = train_step(params, opt_state, bt)
+            pending = []
+            steps_run += chunk
+            if steps_run >= train_steps:
+                break
+    finally:
+        # stop the producer (even after a failed step) before the timed
+        # section: nothing else may run during timing
+        batches.close()
+    final_loss = float(loss)
+    for leaf in opt_state.leaves:
+        leaf.requires_grad_(False)
+    del opt_state, pending
+
+    pools = [d for d in holdout_docs if len(d) >= prompt_len] or holdout_docs
+    runs = []
+    # picks spread over the whole held-out pool: adjacent files of a
+    # sorted walk are correlated (same directory, same style)
+    stride = max(1, len(pools) // max(n_prompts * b, 1))
+    for pi in range(n_prompts):
+        rows = []
+        for i in range(b):
+            d = pools[((pi * b + i) * stride) % len(pools)]
+            row = d[:prompt_len]
+            if len(row) < prompt_len:
+                row = np.tile(d, -(-prompt_len // len(d)))[:prompt_len]
+            rows.append(row)
+        prompt = torch.as_tensor(np.stack(rows), dtype=torch.int32,
+                                 device=dev)
+        runs.append(_measure_early_exit(
+            params, cfg, prompt, draft_layers=draft_layers,
+            gen=gen, gamma=gamma, iters=iters))
+
+    # the headline is the median-speedup run, wholesale, so its numbers
+    # stay consistent with each other (speedup = plain / spec tokens/s)
+    mid = sorted(range(len(runs)),
+                 key=lambda i: runs[i]["speedup"])[len(runs) // 2]
+    out = dict(runs[mid])
+    divergence = [dict(d, prompt=i)
+                  for i, r in enumerate(runs)
+                  for d in (r["divergence"] or [])]
+    out.update(
+        per_prompt=[{"speedup": round(r["speedup"], 3),
+                     "mean_accepted": round(r["mean_accepted"], 2),
+                     "exact_greedy": r["exact_greedy"]} for r in runs],
+        exact_greedy=all(r["exact_greedy"] for r in runs),
+        divergence=divergence or None,
+        train_steps=steps_run,
+        final_train_loss=final_loss,
+        corpus_bytes=corpus_bytes,
+        holdout_docs=len(holdout_docs),
+        exit_aux=exit_aux,
+        shape=runs[mid]["shape"] + " byte-LM",
+    )
+    return out
 
 
 def speculative_sample(target_params: Params, target_cfg: ModelConfig,

@@ -445,6 +445,26 @@ def _param_leaves(node) -> List:
     return list(_leaves(node))
 
 
+def _leaf_paths(node, prefix: str = "") -> List[str]:
+    """The path of each leaf of :func:`_param_leaves`, in its order: dict
+    keys and list indices joined by dots (``layers.0.wqkv``)."""
+    if isinstance(node, dict):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        return [prefix]
+    return [p for k, v in items
+            for p in _leaf_paths(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+def _check_state_keys(got, want, what: str) -> None:
+    if set(got) != set(want):
+        raise KeyError(f"{what} state_dict does not match its params: "
+                       f"missing {sorted(set(want) - set(got))[:4]}, "
+                       f"unexpected {sorted(set(got) - set(want))[:4]}")
+
+
 def param_count(params: Params) -> int:
     return sum((leaf.q if isinstance(leaf, QTensor) else leaf).numel()
                for leaf in _param_leaves(params))
@@ -512,7 +532,9 @@ class OptState:
     clip norm. Creating it sets ``requires_grad`` on every leaf."""
 
     def __init__(self, spec: AdamW, params: Params):
+        self.spec = spec
         self.leaves = _trainable_leaves(params)
+        self.paths = _leaf_paths(params)
         lr = spec.learning_rate
         schedule = lr if callable(lr) else (lambda step: lr)
         self.optimizer = torch.optim.AdamW(
@@ -521,6 +543,48 @@ class OptState:
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer,
                                                            schedule)
         self.clip_norm = spec.clip_norm
+
+    def state_dict(self) -> Dict:
+        """The state as optax's pytree holds it, every tensor named by its
+        leaf's path in the params tree: ``<path>.exp_avg``,
+        ``<path>.exp_avg_sq`` (in the leaf's dtype, on its device) and
+        ``<path>.step`` (a CPU f32 scalar), and ``count``, the scheduler's
+        epoch (updates so far). A leaf not yet updated gives the zeros
+        its first update starts from, so the names and shapes are the
+        same before the first step."""
+        out = {"count": self.scheduler.last_epoch}
+        for path, leaf in zip(self.paths, self.leaves):
+            st = self.optimizer.state.get(leaf, {})
+            for name in ("exp_avg", "exp_avg_sq"):
+                out[f"{path}.{name}"] = st[name] if name in st \
+                    else torch.zeros_like(leaf)
+            out[f"{path}.step"] = st["step"] if "step" in st \
+                else torch.tensor(0.0, dtype=torch.float32)
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Set the moments, step counts and the scheduler's epoch from a
+        :meth:`state_dict` of an optimizer over params of the same paths
+        and shapes (copied onto each leaf's device)."""
+        _check_state_keys(state, ["count"] + [
+            f"{path}.{name}" for path in self.paths
+            for name in ("exp_avg", "exp_avg_sq", "step")], "AdamW")
+        count = int(state["count"])
+        for path, leaf in zip(self.paths, self.leaves):
+            self.optimizer.state[leaf] = {
+                "step": state[f"{path}.step"].detach().to(
+                    "cpu", torch.float32, copy=True),
+                **{name: state[f"{path}.{name}"].detach().to(
+                    leaf.device, leaf.dtype, copy=True)
+                   for name in ("exp_avg", "exp_avg_sq")}}
+        # what count updates leave in LambdaLR and the optimizer's group
+        self.scheduler.last_epoch = count
+        self.scheduler._step_count = count + 1
+        lrs = [base * fn(count) for base, fn in
+               zip(self.scheduler.base_lrs, self.scheduler.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            group["lr"] = lr
+        self.scheduler._last_lr = lrs
 
     @torch.no_grad()
     def apply(self, grads) -> None:
@@ -591,6 +655,7 @@ class AdafactorState:
     def __init__(self, spec: Adafactor, params: Params):
         self.spec = spec
         self.leaves = _trainable_leaves(params)
+        self.paths = _leaf_paths(params)
         self.count = 0
         self.dims, self.v = [], []
         for leaf in self.leaves:
@@ -603,6 +668,36 @@ class AdafactorState:
                 self.v.append(tuple(
                     leaf.new_zeros(np.delete(leaf.shape, d).tolist())
                     for d in (d0, d1)))                 # (v_row, v_col)
+
+    def state_dict(self) -> Dict:
+        """The state as optax's pytree holds it, every tensor named by its
+        leaf's path in the params tree: ``<path>.v`` for a whole second
+        moment, ``<path>.v_row`` and ``<path>.v_col`` for its factors (in
+        the leaf's dtype, on its device), and ``count``, the updates so
+        far."""
+        out = {"count": self.count}
+        for path, v in zip(self.paths, self.v):
+            if isinstance(v, tuple):
+                out[f"{path}.v_row"], out[f"{path}.v_col"] = v
+            else:
+                out[f"{path}.v"] = v
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Set the second moments and the count from a :meth:`state_dict`
+        of an optimizer over params of the same paths and shapes (copied
+        onto each leaf's device)."""
+        _check_state_keys(state, self.state_dict(), "Adafactor")
+
+        def load(key, like):
+            return state[key].detach().to(like.device, like.dtype,
+                                          copy=True)
+
+        for i, (path, v) in enumerate(zip(self.paths, self.v)):
+            self.v[i] = (load(f"{path}.v_row", v[0]),
+                         load(f"{path}.v_col", v[1])) \
+                if isinstance(v, tuple) else load(f"{path}.v", v)
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def apply(self, grads) -> None:

@@ -1,10 +1,18 @@
 """Attention ops of the port: the oracle attention, flash attention for
 training, the paged decode read and the flash-decode read over a
-contiguous cache, with their hand-written CUDA kernels."""
+contiguous cache, with their hand-written CUDA kernels; the attention
+and matrix-product benchmarks."""
 
+from tpu_dra_driver_torch.workloads.ops.collectives import (  # noqa: F401
+    matmul_tflops,
+    matmul_tflops_steady,
+)
 from tpu_dra_driver_torch.workloads.ops.attention import (  # noqa: F401
     attention_reference,
     flash_attention,
+    flash_attention_long_context_tflops,
+    flash_attention_tflops,
+    flash_attention_train_tflops,
     flash_attention_with_lse,
     merge_partials,
 )

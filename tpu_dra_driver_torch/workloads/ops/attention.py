@@ -11,6 +11,10 @@ Port of :mod:`tpu_dra_driver.workloads.ops.attention`:
   Pallas kernels ``_flash_kernel``, ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``.
 - ``merge_partials``: the exact merge of two partial attentions.
+- the benchmarks ``flash_attention_tflops``,
+  ``flash_attention_train_tflops`` and their long-context, sliding-window
+  counterparts, with the reference's defaults, FLOP accounting and
+  result keys.
 
 The kernel wrappers :func:`flash_forward`, :func:`flash_backward_dq` and
 :func:`flash_backward_dkv` dispatch on the device of their inputs: CPU
@@ -33,8 +37,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from tpu_dra_driver_torch.workloads import resolve_device
 from tpu_dra_driver_torch.workloads.ops import _build
+from tpu_dra_driver_torch.workloads.utils.timing import (
+    chain_seconds_per_step, chain_seconds_per_step_runs,
+)
 
 NEG_INF = -1e30
 # scores are kept in base 2 inside the kernels (exp2 with log2(e) folded
@@ -480,3 +489,171 @@ def merge_partials(o1: torch.Tensor, lse1: torch.Tensor,
     out = (o1.float() * (w1 / denom)[..., None]
            + o2.float() * (w2 / denom)[..., None])
     return out, lse
+
+
+# ------------------------------------------------------------ benchmarks
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _bench_inputs(b, h, t, d, dtype, device):
+    """q, k, v [b, h, t, d] drawn on the CPU from seed 0, on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(0)
+    return tuple(torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
+                 for _ in range(3))
+
+
+def _band_pairs(t: int, window: int) -> int:
+    """(row, col) pairs a causal window of ``window`` leaves visible in a
+    [t, t] score matrix: the reference's count, w(w+1)/2 + (t - w) w."""
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def _forward_chain(attn, q, k, v, dtype):
+    """make_run(n) for a chain of n forwards, each output fed back as
+    the next q (the reference's ``fori_loop``)."""
+    def make_run(n):
+        @torch.no_grad()
+        def run():
+            qq = q
+            for _ in range(n):
+                qq = attn(qq, k, v).to(dtype)
+            return qq
+        return run
+    return make_run
+
+
+def _train_chain(attn, q, k, v, dtype):
+    """make_run(n) for a chain of n training steps: the gradients of
+    sum(attn(q, k, v)²) in q, k and v, and the update x - 1e-4 dx (in
+    f32, cast back) fed into the next step, so no gradient is dead."""
+    def step(qkv):
+        qkv = tuple(x.detach().requires_grad_() for x in qkv)
+        loss = attn(*qkv).float().square().sum()
+        grads = torch.autograd.grad(loss, qkv)
+        with torch.no_grad():
+            return tuple((x.float() - 1e-4 * g.float()).to(dtype)
+                         for x, g in zip(qkv, grads))
+
+    def make_run(n):
+        def run():
+            qkv = (q, k, v)
+            for _ in range(n):
+                qkv = step(qkv)
+            return qkv
+        return run
+    return make_run
+
+
+def flash_attention_tflops(b: int = 4, h: int = 8, t: int = 2048,
+                           d: int = 128, dtype=torch.bfloat16,
+                           iters: int = 3, chain_short: int = 64,
+                           chain_long: int = 192, device="cuda") -> dict:
+    """Causal flash-attention forward throughput (TFLOP/s) and its speedup
+    over the oracle attention at the same shape. Seconds per step come
+    from :func:`chain_seconds_per_step` (the device-busy time of the long
+    chain on the card, the marginal rate between the two chain lengths
+    without one). FLOP accounting: 4 b h t² d (QKᵀ and PV), halved for
+    causality. The oracle (``ref_attn_tflops``, ``speedup_vs_ref``) runs
+    while its score matrix stays under 4 GiB, as in the reference;
+    ``library_attn_tflops`` times ``F.scaled_dot_product_attention`` at
+    the same shape as a yardstick (nothing of the port computes with
+    it)."""
+    q, k, v = _bench_inputs(b, h, t, d, dtype, device)
+
+    def measure(attn):
+        return chain_seconds_per_step(_forward_chain(attn, q, k, v, dtype),
+                                      chain_short, chain_long, iters)
+
+    per_flash = measure(lambda q, k, v: flash_attention(q, k, v, True))
+    flops = 4 * b * h * t * t * d / 2
+    out = {
+        "flash_attn_tflops": flops / per_flash / 1e12,
+        "shape": f"b{b} h{h} t{t} d{d} {_dtype_name(dtype)}",
+    }
+    # the oracle materializes the [t, t] score matrix
+    if b * h * t * t * 4 < 4 << 30:
+        per_ref = measure(lambda q, k, v: attention_reference(q, k, v, True))
+        out["ref_attn_tflops"] = flops / per_ref / 1e12
+        out["speedup_vs_ref"] = per_ref / per_flash
+    per_lib = measure(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    out["library_attn_tflops"] = flops / per_lib / 1e12
+    return out
+
+
+def flash_attention_long_context_tflops(b: int = 1, h: int = 8,
+                                        t: int = 16384, d: int = 128,
+                                        window: int = 2048,
+                                        dtype=torch.bfloat16, iters: int = 3,
+                                        chain_short: int = 8,
+                                        chain_long: int = 24,
+                                        n_runs: int = 1,
+                                        device="cuda") -> dict:
+    """Sliding-window flash attention at long context: the banded kernel
+    touches O(t · window) where the oracle's score matrix would take
+    b h t² 4 bytes (8 GiB at these defaults). Useful-FLOP accounting
+    counts only the visible band, w(w+1)/2 + (t - w) w pairs of 4 d
+    FLOPs. ``n_runs`` > 1 re-times the same chain and returns every
+    sample in ``runs_tflops`` (the headline is their median)."""
+    q, k, v = _bench_inputs(b, h, t, d, dtype, device)
+    make_run = _forward_chain(
+        lambda q, k, v: flash_attention(q, k, v, True, window=window,
+                                        block_q=512, block_kv=1024),
+        q, k, v, dtype)
+    pers = chain_seconds_per_step_runs(make_run, chain_short, chain_long,
+                                       iters, n_runs)
+    flops = 4 * b * h * d * _band_pairs(t, window)
+    runs = sorted(flops / p / 1e12 for p in pers)
+    per = sorted(pers)[len(pers) // 2]
+    return {"flash_attn_long_ctx_tflops": runs[len(runs) // 2],
+            "runs_tflops": runs,
+            "long_ctx_step_ms": per * 1e3,
+            "shape": f"b{b} h{h} t{t} w{window} d{d} {_dtype_name(dtype)}"}
+
+
+def flash_attention_train_tflops(b: int = 4, h: int = 8, t: int = 2048,
+                                 d: int = 128, dtype=torch.bfloat16,
+                                 iters: int = 3, chain_short: int = 16,
+                                 chain_long: int = 48,
+                                 device="cuda") -> dict:
+    """Forward and backward (training) flash-attention throughput: a
+    chain of steps that each take the gradients of sum(out²) in q, k and
+    v (kernels B1, B2, B3) and feed the updated q, k, v into the next.
+    FLOP accounting: 2 forward and 5 backward products, 3.5x the
+    forward's 4 b h t² d / 2 (causal)."""
+    q, k, v = _bench_inputs(b, h, t, d, dtype, device)
+    make_run = _train_chain(lambda q, k, v: flash_attention(q, k, v, True),
+                            q, k, v, dtype)
+    per = chain_seconds_per_step(make_run, chain_short, chain_long, iters)
+    flops = 3.5 * 4 * b * h * t * t * d / 2
+    return {"flash_attn_train_tflops": flops / per / 1e12,
+            "shape": f"b{b} h{h} t{t} d{d} {_dtype_name(dtype)}"}
+
+
+def flash_attention_long_context_train_tflops(
+        b: int = 1, h: int = 8, t: int = 16384, d: int = 128,
+        window: int = 2048, dtype=torch.bfloat16, iters: int = 3,
+        chain_short: int = 4, chain_long: int = 12, n_runs: int = 1,
+        device="cuda") -> dict:
+    """Forward and backward sliding-window attention at long context:
+    the training chain of :func:`flash_attention_train_tflops` under the
+    window mask. FLOP accounting: 3.5x the forward's band-visible pairs.
+    ``n_runs`` > 1 re-times the same chain and returns every sample in
+    ``runs_tflops`` (the headline is their median)."""
+    q, k, v = _bench_inputs(b, h, t, d, dtype, device)
+    make_run = _train_chain(
+        lambda q, k, v: flash_attention(q, k, v, True, window=window,
+                                        block_q=512, block_kv=1024),
+        q, k, v, dtype)
+    pers = chain_seconds_per_step_runs(make_run, chain_short, chain_long,
+                                       iters, n_runs)
+    flops = 3.5 * 4 * b * h * d * _band_pairs(t, window)
+    runs = sorted(flops / p / 1e12 for p in pers)
+    per = sorted(pers)[len(pers) // 2]
+    return {"flash_attn_long_ctx_train_tflops": runs[len(runs) // 2],
+            "runs_tflops": runs,
+            "long_ctx_train_step_ms": per * 1e3,
+            "shape": f"b{b} h{h} t{t} w{window} d{d} {_dtype_name(dtype)}"}
