@@ -4,8 +4,8 @@
 Drives the port's serving, generation and training paths, the
 mixture-of-experts, Adafactor, LoRA, masked-LM encoder, encoder-decoder,
 beam-search and speculative-decoding paths, the input pipeline,
-checkpoints, profiling and the single-device benchmarks, on one CUDA
-card and checks them; imports no JAX. Phases, each of which fails the
+checkpoints, profiling, the single-device benchmarks and the sharded
+training tier (at world size 1), on one CUDA card and checks them; imports no JAX. Phases, each of which fails the
 run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
@@ -166,11 +166,35 @@ run when it fails:
    any other divergence;
 24. paged kernel per launch: B4's split and merge kernels timed apart
    under ``torch.profiler`` at phase 3's serving read. Every use of the
-   profiler follows the wall-clock readings of its phase.
+   profiler follows the wall-clock readings of its phase;
+25. collectives: an NCCL group of one rank (the machine has one card),
+   ``build_mesh`` and ``build_mesh_spmd`` over it (every axis 1), each
+   collective's output its input, and the five collective benchmarks at
+   their defaults (algorithm bandwidth positive, bus factor 0 at n = 1,
+   the ppermute ring's data home), their RESULT lines printed;
+26. the ring's hops at full width: every rank's hops of a causal ring,
+   driven in this one process through the port's own ring loops
+   (``ring_attention_all_ranks``: B1 each hop, B2 and B3 each hop of
+   the backward against the merged lse), at q [8, 16, 2048, 128],
+   k/v [8, 4, 2048, 128] over 4 ranks and at [1, 8, 16384, 128] with
+   window 2048 over 8 (one windowed hop, row_offset 2048): the output
+   and the gradients of (out ** 2).sum() row by row against the f32
+   reference, the same ring through the plain versions of B1-B3 the
+   allowance's plain version (the whole sequence's ``flash_attention``
+   read beside it), a tile left out shown to break it; B1-B3's launches
+   counted; one hop of each held alone and timed as in phase 4, and ms
+   per hop by ``torch.profiler``;
+27. the sharded step at world size 1: the training cell (dense,
+   ``default_optimizer()``) and its MoE top-2 cell (Adafactor) through
+   ``build_mesh_spmd``, ``param_shardings``, ``zero1_opt_shardings`` and
+   ``make_ring_attention``, against ``make_train_step`` with
+   ``flash_attention`` on the same weights: losses within 1e-5
+   relative, params within one bf16 ulp after four steps, ms per step
+   of both.
 
-Phases 1-2 run in the script's own process, phases 3-20 and 21-24 in
-two processes of the script that it starts one after the other (see
-``HALF``). It then prints one ``{"kernels": [...]}`` line, the card's
+Phases 1-2 run in the script's own process, phases 3-20, 21-24 and
+25-27 in three processes of the script that it starts one after the
+other (see ``HALF``). It then prints one ``{"kernels": [...]}`` line, the card's
 name and power limit and, last, the device line ``{"ok": true,
 "device": {...}}``. Without a CUDA card it exits
 non-zero and prints no result.
@@ -197,6 +221,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_dra_driver_torch import entry
@@ -223,6 +248,8 @@ from tpu_dra_driver_torch.workloads.ops import attention as fa
 from tpu_dra_driver_torch.workloads.ops import collectives as co
 from tpu_dra_driver_torch.workloads.ops import decode_attention as da
 from tpu_dra_driver_torch.workloads.ops import paged_attention as pa
+from tpu_dra_driver_torch.workloads.parallel import mesh as pm
+from tpu_dra_driver_torch.workloads.parallel import ringattention as pr
 from tpu_dra_driver_torch.workloads.utils import timing
 from tpu_dra_driver_torch.workloads.utils.checkpoint import (
     abstract_like, restore_train_state, save_train_state,
@@ -537,6 +564,27 @@ FLASH_MHA = (4, 8, 8, 2048, 2048, 128)
 # the reference bench's runs of the long-context benchmarks (bench.py:45)
 LONG_CTX_RUNS = 3
 MATMUL_M = 8192
+# the ring's hops at full width, every rank's driven in one process:
+# name -> ((b, h, h_kv, t, d), ranks, window); causal, bf16. The training
+# shape over 4 ranks (t_local 512), and the long-context cell over 8
+# (t_local 2048: one windowed hop, row_offset 2048)
+RING_SHAPES = {"train": ((8, 16, 4, 2048, 128), 4, None),
+               "long": ((1, 8, 8, 16384, 128), 8, 2048)}
+# the 64 x 64 tiles left out of the whole sequence (inside its mask)
+RING_TILES = {"train": FLASH_MUTANT_TILES, "long": FLASH_LONG_TILES}
+# one hop of each ring held alone and timed (the kernels' ring rows):
+# the training ring's chunk from the past (no mask) and the long ring's
+# windowed hop; the tiles lie inside the hop's mask
+RING_HOP_CASES = {
+    "train": ((8, 16, 4, 512, 512, 128), {"causal": False},
+              ((256, 0), (448, 448))),
+    "long": ((1, 8, 8, 2048, 2048, 128),
+             {"causal": True, "window": 2048, "row_offset": 2048},
+             ((0, 1024), (960, 1984))),
+}
+# the sharded step on one rank against make_train_step: the same
+# operations, so the losses agree to f32 rounding
+TOL_SHARDED_LOSS_REL = 1e-5
 # the reference bench's real-data early-exit call (bench.py:2433)
 REAL_DATA_BENCH = dict(b=1, gamma=8, gen=256, train_steps=600)
 # profiler ranges the MoE step's split attributes kernels by
@@ -984,17 +1032,19 @@ def _flash_inputs(shape, dtype, gen):
             randn(b, h, t, d), randn(b, h, t).float())
 
 
-def _flash_pairs(q, k, v, dout, g_lse, mask):
+def _flash_pairs(q, k, v, dout, g_lse, mask, grad_f32=False):
     """{output: (kernel's, plain version's)} for out, lse, dq, dk and dv
-    on the same inputs; both backward versions take the kernel forward's
-    out and lse."""
+    on the same inputs, the gradients in f32 with ``grad_f32``; both
+    backward versions take the kernel forward's out and lse."""
     out, lse = fa.flash_forward(q, k, v, **mask)
     want_out, want_lse = fa._flash_forward_plain(q, k, v, **mask)
     dd = (dout.float() * out.float()).sum(-1) - g_lse
     args = (q, k, v, dout, lse, dd)
-    dq = fa.flash_backward_dq(*args, **mask)
-    dk, dv = fa.flash_backward_dkv(*args, **mask)
-    want_dq, want_dk, want_dv = fa._flash_backward_plain(*args, **mask)
+    dq = fa.flash_backward_dq(*args, **mask, f32_out=grad_f32)
+    dk, dv = fa.flash_backward_dkv(*args, **mask, f32_out=grad_f32)
+    want_dq = fa._flash_backward_dq_plain(*args, **mask, f32_out=grad_f32)
+    want_dk, want_dv = fa._flash_backward_dkv_plain(*args, **mask,
+                                                    f32_out=grad_f32)
     torch.cuda.synchronize()
     return {"out": (out, want_out), "lse": (lse, want_lse),
             "dq": (dq, want_dq), "dk": (dk, want_dk), "dv": (dv, want_dv)}
@@ -1075,8 +1125,8 @@ def _tile_omission(allow, operands, row0, col0, n, mask=None):
     qt, dot = q32[:, :, rows], do32[:, :, rows]
     mask = mask or {}
     vis = fa._visible(t, k32.shape[2], mask.get("causal", True),
-                      mask.get("window"), 0, mask.get("prefix"),
-                      q32.device)[rows][:, cols]
+                      mask.get("window"), mask.get("row_offset", 0),
+                      mask.get("prefix"), q32.device)[rows][:, cols]
     s = torch.einsum("bhid,bhjd->bhij", qt, kr) / math.sqrt(d)
     p = torch.where(vis, torch.exp(s - lse[:, :, rows, None]), 0.0)
     ds = p * (torch.einsum("bhid,bhjd->bhij", dot, vr)
@@ -1148,25 +1198,34 @@ def _flash_bf16_case(name, shape, mask, gen) -> None:
 
 
 def _flash_full_width(gen, mask: dict, shape=None,
-                      tiles=FLASH_MUTANT_TILES) -> dict:
+                      tiles=FLASH_MUTANT_TILES, grad_f32=False) -> dict:
     """B1-B3 at a full-width shape (b, h, h_kv, t, tkv, d) in bf16 under
     ``mask`` (causal when empty, bidirectional with ``prefix`` = t, no
-    mask with ``causal=False``, a band with ``window``); the shape
+    mask with ``causal=False``, a band with ``window``, a ring's hop with
+    ``row_offset``, whose rows with an empty band must come out as
+    phase 4 checks them and are left out of the lse's error); the shape
     defaults to the training configuration's: every output row against
     the f32 reference within its allowance, a 64 x 64 tile at each of
     ``tiles`` left out shown to break that allowance, then each kernel
     timed with a cold L2 against its plain version, SDPA (causal or not,
     as the mask; with a window, an explicit band mask) and its bound
-    from this run's visible pairs, returned by kernel name."""
+    from this run's visible pairs, returned by kernel name. With
+    ``grad_f32`` B2 and B3 write their gradients in f32, as a ring's
+    hops do."""
     if shape is None:
         b, h, h_kv, t, d = FLASH_FULL
         shape = (b, h, h_kv, t, t, d)
     b, h, h_kv, t, tkv, d = shape
     q, k, v, dout, g_lse = _flash_inputs(shape, torch.bfloat16, gen)
     g_lse.zero_()                     # flash_attention's backward: no lse
-    pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
+    pairs = _flash_pairs(q, k, v, dout, g_lse, mask, grad_f32)
     errs = _errors(pairs)
-    label = mask or "causal"
+    empty = _empty_rows(shape, mask)
+    if empty.any():
+        _check_empty_rows(pairs, empty, f"bf16 {shape} {mask}")
+        errs["lse"] = _errors({"lse": tuple(
+            x[:, :, ~empty] for x in pairs["lse"])})["lse"]
+    label = f"{mask or 'causal'}{', gradients in f32' if grad_f32 else ''}"
     print(f"bf16 {shape} {label}, kernel vs plain: " + ", ".join(
         f"{o} {e:.2e} (largest {top:.2e})" for o, (e, top) in errs.items()))
     if not errs["lse"][0] <= TOL_FLASH_LSE:
@@ -1209,20 +1268,24 @@ def _flash_full_width(gen, mask: dict, shape=None,
         "flash_forward": time_ms(lambda: fa.flash_forward(q, k, v, **mask),
                                  flush=flush),
         "flash_backward_dq": time_ms(
-            lambda: fa.flash_backward_dq(*args, **mask), flush=flush),
+            lambda: fa.flash_backward_dq(*args, **mask, f32_out=grad_f32),
+            flush=flush),
         "flash_backward_dkv": time_ms(
-            lambda: fa.flash_backward_dkv(*args, **mask), flush=flush),
+            lambda: fa.flash_backward_dkv(*args, **mask, f32_out=grad_f32),
+            flush=flush),
     }
     plain_ms = {
         "flash_forward": time_ms(
             lambda: fa._flash_forward_plain(q, k, v, **mask), iters=5,
             flush=flush),
         "flash_backward_dq": time_ms(
-            lambda: fa._flash_backward_dq_plain(*args, **mask), iters=5,
-            flush=flush),
+            lambda: fa._flash_backward_dq_plain(*args, **mask,
+                                                f32_out=grad_f32),
+            iters=5, flush=flush),
         "flash_backward_dkv": time_ms(
-            lambda: fa._flash_backward_dkv_plain(*args, **mask), iters=5,
-            flush=flush),
+            lambda: fa._flash_backward_dkv_plain(*args, **mask,
+                                                 f32_out=grad_f32),
+            iters=5, flush=flush),
     }
     torch.cuda.empty_cache()
     # yardsticks only (the port never calls them): SDPA's forward, and
@@ -1230,7 +1293,7 @@ def _flash_full_width(gen, mask: dict, shape=None,
     # every pair when the prefix covers the sequence or there is no mask
     # (the bound below counts the same visible pairs)
     vis = fa._visible(t, tkv, mask.get("causal", True), mask.get("window"),
-                      0, mask.get("prefix"), DEV)
+                      mask.get("row_offset", 0), mask.get("prefix"), DEV)
     if "window" in mask:
         # SDPA has no band: an explicit [t, tkv] mask, over every pair
         sdpa = {"attn_mask": vis, "enable_gqa": True}
@@ -1241,7 +1304,9 @@ def _flash_full_width(gen, mask: dict, shape=None,
         q, k, v, **sdpa), flush=flush)
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qr, kr, vr, **sdpa)
-    lib_err = (lib_out.float() - out.float()).abs().max().item()
+    # over the rows with a band (SDPA gives NaN where the mask hides a
+    # whole row)
+    lib_err = (lib_out.float() - out.float())[:, :, ~empty].abs().max().item()
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (qr, kr, vr), dout, retain_graph=True), flush=flush)
     del lib_out
@@ -1256,23 +1321,29 @@ def _flash_full_width(gen, mask: dict, shape=None,
     err = {"flash_forward": errs["out"][0],
            "flash_backward_dq": errs["dq"][0],
            "flash_backward_dkv": max(errs["dk"][0], errs["dv"][0])}
-    result = _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms)
+    result = _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms,
+                         grad_f32)
     print(f"SDPA backward is one time for dq, dk and dv together; "
           f"max |SDPA out - B1 out| {lib_err:.2e}")
     return result
 
 
-def _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms) -> dict:
+def _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms,
+                grad_f32=False) -> dict:
     """{kernel: its reading} with the bound from this run's inputs (each
-    input read once, each output written once; 4 d (B1), 6 d (B2), 8 d
-    (B3) flops per visible pair), printed a line each."""
+    input read once, each output written once, the gradients 4 bytes an
+    element with ``grad_f32``; 4 d (B1), 6 d (B2), 8 d (B3) flops per
+    visible pair), printed a line each."""
     b, h, t, d = q.shape
     qb, kvb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rowb = b * h * t * 4                              # lse or D, f32
+    widen = 4 // q.element_size() if grad_f32 else 1  # dq, dk, dv written
     work = {
         "flash_forward": (2 * qb + 2 * kvb + rowb, 4 * d * pairs),
-        "flash_backward_dq": (3 * qb + 2 * kvb + 2 * rowb, 6 * d * pairs),
-        "flash_backward_dkv": (2 * qb + 4 * kvb + 2 * rowb, 8 * d * pairs),
+        "flash_backward_dq": ((2 + widen) * qb + 2 * kvb + 2 * rowb,
+                              6 * d * pairs),
+        "flash_backward_dkv": (2 * qb + (2 + 2 * widen) * kvb + 2 * rowb,
+                               8 * d * pairs),
     }
     result = {}
     for name, _ in FLASH_KERNELS:
@@ -3584,6 +3655,257 @@ def full_width_real_data_phase(card: str) -> None:
 # phase 21's first trace after phases 3-20; long sessions kept theirs;
 # cause not found), and phase 21's traces, phase 22's SDPA backend and
 # benchmark timings rest on such sessions
+# ------------------------------------------ the sharded training tier
+
+def collectives_phase(card: str) -> None:
+    """An NCCL group of one rank: both meshes over it, every axis 1; the
+    five collective benchmarks at their defaults, each collective's
+    output the input (one rank), the bus factor 0 and the algorithm
+    bandwidth positive, the ppermute ring's data home (asserted inside
+    ``ppermute_latency``)."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        flat = pm.build_mesh(device_type="cuda")
+        mesh = pm.build_mesh_spmd(device_type="cuda")
+        print(f"build_mesh {dict(zip(flat.mesh_dim_names, flat.shape))}, "
+              f"build_mesh_spmd "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        if tuple(flat.shape) != (1, 1) or tuple(mesh.shape) != (1, 1, 1, 1):
+            raise AssertionError("a one-rank world gives meshes of size 1")
+        x = torch.arange(4096, dtype=torch.float32, device=DEV)
+        for kind in ("psum", "all_gather", "reduce_scatter", "all_to_all"):
+            if not torch.equal(co.collective(kind, x), x):
+                raise AssertionError(f"{kind} over one rank is not its input")
+        for bench in (co.psum_bandwidth, co.all_gather_bandwidth,
+                      co.reduce_scatter_bandwidth, co.all_to_all_bandwidth):
+            r = bench()
+            print(f"{bench.__name__}: {r}")
+            if not (r.algo_gbps > 0 and r.bus_gbps == 0
+                    and r.backend == "nccl"):
+                raise AssertionError(f"{bench.__name__} at n = 1: {r}")
+        print(f"ppermute_latency: {co.ppermute_latency()}")
+    finally:
+        dist.destroy_process_group()
+    print(f"{card}: the collectives at world size 1 over NCCL")
+
+
+def _ring_grads(q, k, v, n, window):
+    """(out, dq, dk, dv) of ``(out ** 2).sum()`` through every rank's hops
+    of the causal ring of ``n`` ranks (``ring_attention_all_ranks``: the
+    forward and backward loops that ``ring_attention`` runs, with the
+    chunks rotated between the ranks in place of the collective)."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = pr.ring_attention_all_ranks(*leaves, n, True, window)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+    return (out.detach(),) + grads
+
+
+@contextlib.contextmanager
+def _plain_flash():
+    """Inside, the flash wrappers run their plain versions on the card
+    too: the same composition through the plain versions of B1-B3."""
+    saved = _flash_wrappers()
+    fa.flash_forward = lambda *a, with_lse=True, **kw: \
+        fa._flash_forward_plain(*a, **kw)
+    fa.flash_backward_dq = fa._flash_backward_dq_plain
+    fa.flash_backward_dkv = fa._flash_backward_dkv_plain
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+
+
+def _ring_shape_check(key: str, gen) -> tuple:
+    """One ring shape: the hops of every rank forward and backward with
+    B1-B3's launches counted (the main path of the kernels' ring rows),
+    held row by row against the f32 reference. The ring's plain version
+    is the same ring through the plain versions of B1-B3 in bf16: each
+    hop's partial output is rounded to bf16 before the f32 merge (as in
+    the reference) and each chunk's dk/dv sum to bf16 for the wire,
+    roundings that the whole sequence's one kernel call does not make,
+    so the whole sequence's ``flash_attention`` is read beside it but
+    does not set the allowance (chosen so before the first chip run of
+    this phase). A tile left out is shown
+    to break the allowance. Then one hop held alone and timed
+    (:func:`_flash_full_width`), and the hops' kernels by the profiler.
+    Returns (the hop's readings by kernel, launches)."""
+    (b, h, h_kv, t, d), n, window = RING_SHAPES[key]
+    tl = t // n
+    q, k, v, _, _ = _flash_inputs((b, h, h_kv, t, t, d), torch.bfloat16,
+                                  gen)
+    wrappers = _flash_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    got = _ring_grads(q, k, v, n, window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    visited = sum(m is not None for idx in range(n)
+                  for m in pr.ring_schedule(idx, n, tl, True, window))
+    print(f"ring {key}: q [{b}, {h}, {t}, {d}], k/v [{b}, {h_kv}, {t}, {d}], "
+          f"bf16, n {n} (t_local {tl}), window {window}: {visited} hops "
+          f"visited, forward and backward {wall:.2f} s; launches {launches}")
+    if launches != dict.fromkeys(wrappers, visited):
+        raise AssertionError(f"ring {key}: launches {launches}, expected "
+                             f"{visited} of each")
+
+    mask = {} if window is None else {"window": window}
+    with _plain_flash():
+        plain = _ring_grads(q, k, v, n, window)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    whole = fa.flash_attention(*leaves, True, window=window)
+    whole = (whole.detach(),) + torch.autograd.grad(
+        (whole.float() ** 2).sum(), leaves)
+    del leaves
+    out32, _ = fa._flash_forward_plain(q.float(), k.float(), v.float(),
+                                       **mask)
+    dout = 2 * out32
+    del out32
+    ref, operands = _flash_f32_reference(q, k, v, dout, torch.zeros(
+        b, h, t, device=DEV), mask)
+    del dout
+    outputs = ("out", "dq", "dk", "dv")
+    allow = {o: _allowance(p, ref[o]) for o, p in zip(outputs, plain)}
+    omitted = [_tile_omission(allow, operands, r0, c0, FLASH_MUTANT_TILE,
+                              mask) for r0, c0 in RING_TILES[key]]
+    del operands
+    print("  worst row vs the f32 reference, relative to the row's "
+          "largest value (ring through B1-B3, through their plain "
+          "versions, whole-sequence flash_attention); the ring's worst "
+          "error over its allowance (<= 1 passes); a tile left out, over "
+          "the allowance (> 1 is seen); the ring's worst error over the "
+          "allowance the whole-sequence call would set (read only)")
+    for o, ring_o, plain_o, whole_o in zip(outputs, got, plain, whole):
+        r = _bf16_reading(ring_o, plain_o, ref[o])
+        w = _bf16_reading(ring_o, whole_o, ref[o])
+        mutants = [m[o] for m in omitted]
+        print(f"  {o}: {r['kernel']:.3e} (row {r['at']}), "
+              f"{r['plain']:.3e}, {w['plain']:.3e}; {r['over']:.3f}; "
+              + ", ".join(f"tile {r0},{c0} {m:.1f}"
+                          for m, (r0, c0) in zip(mutants, RING_TILES[key]))
+              + f"; {w['over']:.3f}")
+        if not r["over"] <= 1.0:
+            raise AssertionError(f"ring {key}: {o} off the f32 reference: "
+                                 f"{r['over']} of its allowance")
+        if not min(mutants) > 1.0:
+            raise AssertionError(f"ring {key}: the allowance on {o} would "
+                                 f"not see a tile left out ({mutants})")
+    del ref, allow, plain, got, whole
+    torch.cuda.empty_cache()
+
+    shape, hop_mask, tiles = RING_HOP_CASES[key]
+    print(f"one hop held alone: {shape} {hop_mask}")
+    readings = _flash_full_width(gen, hop_mask, shape, tiles, grad_f32=True)
+    split = _device_split(lambda: _ring_grads(q, k, v, n, window),
+                          KERNEL_GROUPS)
+    if split is None:
+        print("  the profiler recorded no device time (ms per hop not "
+              "measured)")
+    else:
+        busy, shares, _ = split
+        print(f"  profiled, forward and backward of every hop: busy "
+              f"{busy:.2f} ms; per hop " + ", ".join(
+                  f"{g} {shares[g] / visited:.4f} ms"
+                  for g, _ in KERNEL_GROUPS[:3])
+              + f"; the rest (merges, slices, casts) "
+              f"{(busy - sum(shares[g] for g, _ in KERNEL_GROUPS[:3])) / visited:.4f} ms")
+    return readings, launches
+
+
+def ring_hops_phase(card: str) -> dict:
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for key in RING_SHAPES:
+        out[key] = _ring_shape_check(key, gen)
+        torch.cuda.empty_cache()
+    print(f"{card}: the ring's hops at both shapes")
+    return out
+
+
+@torch.no_grad()
+def _bf16_ulps_apart(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| in units of b's bf16 ulp (the spacing at |b|)."""
+    b32 = b.float()
+    exp = torch.floor(torch.log2(b32.abs().clamp_min(2.0 ** -126)))
+    ulp = torch.exp2(exp - 7)
+    return ((a.float() - b32).abs() / ulp).max().item()
+
+
+def _sharded_step_cell(card: str, label: str, cfg, opt, mesh) -> None:
+    """The training cell through the reference dryrun's calls on a
+    one-rank mesh, against ``make_train_step(attn_fn=flash_attention)``
+    on the same weights and batch: one untimed and three timed steps of
+    each, the losses within TOL_SHARDED_LOSS_REL and the params after
+    the four steps within one bf16 ulp."""
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=DEV)
+    b, t = FULL_TRAIN_BATCH
+    tokens = torch.randint(0, cfg.vocab, (b, t),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    batch = (tokens, tokens)
+    ring = pr.make_ring_attention(mesh, axis_name="sp", batch_axes=("dp",),
+                                  head_axis="tp")
+    train_step, opt_init = tt.make_train_step(cfg, optimizer=opt,
+                                              attn_fn=ring)
+    p_shard = pm.param_shardings(mesh, params)
+    z_shard = pm.zero1_opt_shardings(mesh, params, opt)
+    s_params = pm.device_put(params, p_shard)
+    s_batch = tuple(pm.device_put(x, pm.batch_sharding(mesh))
+                    for x in batch)
+    s_opt = opt_init(s_params, z_shard)
+    step, init = tt.make_train_step(cfg, optimizer=opt,
+                                    attn_fn=fa.flash_attention)
+    state = init(params)
+    first = (train_step(s_params, s_opt, s_batch)[2].item(),
+             step(params, state, batch)[2].item())
+    print(f"{label}: {tt.param_count(params) / 1e6:.1f}M params, set-up "
+          f"and first steps {time.perf_counter() - t0:.1f} s; first loss "
+          f"sharded {first[0]:.6f}, unsharded {first[1]:.6f}")
+    s_ms, s_losses, s_launches, s_peak = _timed_steps(
+        lambda: train_step(s_params, s_opt, s_batch)[2])
+    _check_flash_launches(s_launches, cfg, f"sharded {label}")
+    p_ms, p_losses, _, p_peak = _timed_steps(
+        lambda: step(params, state, batch)[2])
+    apart = max(_bf16_ulps_apart(a, c) for a, c in zip(
+        tt._param_leaves(s_params), tt._param_leaves(params)))
+    rel = [abs(x - y) / abs(y) for x, y in zip(
+        (first[0], *s_losses), (first[1], *p_losses))]
+    print(f"{card}: {label}, {TIMED_STEPS} steps of {b}x{t}: sharded step "
+          f"(world 1, ring attention, ZeRO-1 layout) {s_ms:.2f} ms/step, "
+          f"peak {s_peak / 2**30:.2f} GiB; make_train_step {p_ms:.2f} "
+          f"ms/step, peak {p_peak / 2**30:.2f} GiB ({s_ms / p_ms - 1:+.2%}); "
+          f"losses {s_losses} / {p_losses}, largest relative difference "
+          f"{max(rel):.2e}; params {apart:.2f} bf16 ulps apart at most; "
+          f"flash launches {s_launches}")
+    if not max(rel) <= TOL_SHARDED_LOSS_REL:
+        raise AssertionError(f"sharded {label}: losses {s_losses} against "
+                             f"{p_losses}")
+    if not apart <= 1.0:
+        raise AssertionError(f"sharded {label}: params {apart} bf16 ulps "
+                             f"from make_train_step's")
+    _check_losses(first[0], s_losses, f"sharded {label}")
+
+
+def sharded_step_phase(card: str) -> None:
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = pm.build_mesh_spmd(device_type="cuda")
+        _sharded_step_cell(card, "dense, default_optimizer()", FULL_TRAIN,
+                           tt.default_optimizer(), mesh)
+        torch.cuda.empty_cache()
+        _sharded_step_cell(card, "MoE top-2, Adafactor", FULL_MOE_TRAIN,
+                           tt.default_optimizer(kind="adafactor"), mesh)
+    finally:
+        dist.destroy_process_group()
+
+
 HALF = "--half"
 READINGS = "chip_smoke readings: "
 
@@ -3684,10 +4006,26 @@ def second_half(smi: str) -> dict:
     return {"benches": benches}
 
 
+def third_half(smi: str) -> dict:
+    """Phases 25-27: the sharded training tier on the card, at world
+    size 1 (the machine has one card): the collectives, the ring's hops
+    at full width for every rank, and the sharded step. Returns the ring
+    hops' kernel readings."""
+    phase("collectives and meshes over an NCCL group of one rank")
+    collectives_phase(smi)
+
+    phase("the ring's hops at full width, every rank's")
+    ring = ring_hops_phase(smi)
+
+    phase("the sharded training step at world size 1, full width")
+    sharded_step_phase(smi)
+    return {"ring": ring}
+
+
 def _run_half(which: str) -> dict:
-    """Runs phases ``which`` ("1": 3-20, "2": 21-24) in a new process of
-    this script, its output passed through; returns its readings, or
-    raises when it failed."""
+    """Runs phases ``which`` ("1": 3-20, "2": 21-24, "3": 25-27) in a
+    new process of this script, its output passed through; returns its
+    readings, or raises when it failed."""
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), HALF, which],
         stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, text=True)
@@ -3714,7 +4052,8 @@ def _half_main(which: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = _card(quiet=True)
-    readings = (first_half if which == "1" else second_half)(smi)
+    readings = {"1": first_half, "2": second_half,
+                "3": third_half}[which](smi)
     print(READINGS + json.dumps(readings), flush=True)
     return 0
 
@@ -3752,6 +4091,7 @@ def main() -> int:
 
     first = _run_half("1")
     second = _run_half("2")
+    third = _run_half("3")
 
     rows = [_kernel_row("paged_decode_attention", "paged_attention.cu",
                         "tpu_dra_driver/workloads/ops/paged_attention.py:112",
@@ -3767,6 +4107,16 @@ def main() -> int:
                      ("long_context+train, b1 h8 t16384 w2048 d128",
                       "long")):
         readings, counts = second["benches"][key]
+        for name, replaces in FLASH_KERNELS:
+            rows.append(_kernel_row(f"{name} ({tag})", "flash_attention.cu",
+                                    replaces, counts[name], readings[name]))
+    # B1-B3 at the ring's hop shapes, launches counted over every rank's
+    # hops, forward and backward, at that ring's shape
+    for tag, key in (("ring hop, b8 h16/4 t512 of 2048, n 4, no mask",
+                      "train"),
+                     ("ring hop, b1 h8 t2048 of 16384, n 8, window 2048, "
+                      "row_offset 2048", "long")):
+        readings, counts = third["ring"][key]
         for name, replaces in FLASH_KERNELS:
             rows.append(_kernel_row(f"{name} ({tag})", "flash_attention.cu",
                                     replaces, counts[name], readings[name]))

@@ -275,3 +275,30 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
             ta.flash_backward_dkv.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         ta.flash_forward(tq.to("meta"), tk.to("meta"), tv.to("meta"))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_backward_f32_out_is_the_gradient_before_its_rounding(name):
+    """``f32_out`` (a ring sums its hops' gradients in f32) gives dq, dk
+    and dv in f32; rounded to bf16 they are the default outputs, bit for
+    bit, and in f32 they stay within the reference's bf16 tolerance."""
+    shape, kw = CASES[name]
+    q, k, v, g, g_lse = _inputs(shape, seed=5)
+    tq, tk, tv, tg = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
+    out, lse = ta.flash_forward(tq, tk, tv, **kw)
+    dd = (tg.float() * out.float()).sum(-1)
+    args = (tq, tk, tv, tg, lse, dd)
+    dq = ta.flash_backward_dq(*args, **kw)
+    dk, dv = ta.flash_backward_dkv(*args, **kw)
+    dq32 = ta.flash_backward_dq(*args, **kw, f32_out=True)
+    dk32, dv32 = ta.flash_backward_dkv(*args, **kw, f32_out=True)
+    for wide, narrow in ((dq32, dq), (dk32, dk), (dv32, dv)):
+        assert wide.dtype == torch.float32 and narrow.dtype == torch.bfloat16
+        assert torch.equal(wide.bfloat16(), narrow)
+    _, _, jdq, jdk, jdv = _jax_flash(
+        *(x.float().numpy() for x in (tq, tk, tv, tg)),
+        np.zeros_like(g_lse), **kw)
+    for wide, want in ((dq32, jdq), (dk32, jdk), (dv32, jdv)):
+        top = np.abs(want).max()
+        np.testing.assert_allclose(wide.numpy(), want, rtol=TOL_BF16_REL,
+                                   atol=TOL_BF16_REL * top)

@@ -32,10 +32,14 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "ml_dtypes",
              "tpu_dra_driver")
 
 
-# the modules of the input pipeline, checkpoints, profiling and the
-# single-device benchmarks, which the walk must hold like the rest
+# the modules of the input pipeline, checkpoints, profiling, the
+# benchmarks and the multi-device tier, which the walk must hold like
+# the rest
 NEW_MODULES = ("workloads/data.py", "workloads/utils/checkpoint.py",
-               "workloads/utils/profiling.py", "workloads/ops/collectives.py")
+               "workloads/utils/profiling.py", "workloads/ops/collectives.py",
+               "workloads/parallel/__init__.py", "workloads/parallel/mesh.py",
+               "workloads/parallel/ringattention.py",
+               "workloads/parallel/spmd.py", "workloads/parallel/launch.py")
 
 
 def _port_files():

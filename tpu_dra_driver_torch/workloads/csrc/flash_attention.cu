@@ -15,6 +15,8 @@
 //   q, out, dout, dq  [b, h, t, d]       bf16 or f32
 //   k, v, dk, dv      [b, h_kv, tkv, d]  q's dtype; query head j reads
 //                                        KV head j / (h / h_kv) (GQA)
+//   dq, dk, dv are f32 also for bf16 inputs when the caller asks
+//   (`grad_f32`: a ring sums them over its hops before one rounding)
 //   lse, dd           [b, h, t]          f32, natural-log logsumexp and
 //                                        D = rowsum(dO * O) - g_lse
 //
@@ -137,6 +139,7 @@ struct Args {
   void* dv;
   int b, h, h_kv, t, tkv, d;
   int causal, window, row_offset, prefix;
+  int grad_f32;  // bf16 kernels: dq, dk, dv written in f32
   float scale;
 };
 
@@ -1094,6 +1097,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// two adjacent gradient values at element i (even) of a bf16 kernel's
+// output, rounded to bf16, or as they are when the output is f32
+__device__ __forceinline__ void store2(void* base, size_t i, float x, float y,
+                                       int f32) {
+  if (f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + i) =
+        make_float2(x, y);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) +
+                                       i) = __floats2bfloat162_rn(x, y);
+}
+
 // ------------------------------------------------------ B3 dk/dv, bf16
 
 template <int HD> struct Dkv {
@@ -1293,17 +1308,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c = kc + 8 * i;
       if (c >= a.tkv) continue;
       const size_t row = ((size_t)kvh * a.tkv + c) * d;
-      __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(a.dk) + row;
-      __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(a.dv) + row;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         const int col = 8 * j + qc;
         if (col >= d) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dk_out + col) =
-            __floats2bfloat162_rn(dk[4 * j + 2 * i] * a.scale,
-                                  dk[4 * j + 2 * i + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv_out + col) =
-            __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+        store2(a.dk, row + col, dk[4 * j + 2 * i] * a.scale,
+               dk[4 * j + 2 * i + 1] * a.scale, a.grad_f32);
+        store2(a.dv, row + col, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1],
+               a.grad_f32);
       }
     }
   }
@@ -1537,14 +1549,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 2; ++i) {
       const int qi = i0 + lr + 8 * i;
       if (qi >= a.t) continue;
-      __nv_bfloat16* out =
-          static_cast<__nv_bfloat16*>(a.dq) + ((size_t)bh * a.t + qi) * d;
+      const size_t row = ((size_t)bh * a.t + qi) * d;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         const int c = 8 * j + qc;
         if (c < d)
-          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
-              dq[4 * j + 2 * i] * a.scale, dq[4 * j + 2 * i + 1] * a.scale);
+          store2(a.dq, row + c, dq[4 * j + 2 * i] * a.scale,
+                 dq[4 * j + 2 * i + 1] * a.scale, a.grad_f32);
       }
     }
   }
@@ -1768,7 +1779,7 @@ extern "C" int flash_attention_backward_dq_launch(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dd, void* dq, int b, int h, int h_kv, int t,
     int tkv, int d, int causal, int window, int row_offset, int prefix,
-    void* stream) {
+    int grad_f32, void* stream) {
   if (int e = check_shape(b, h, h_kv, t, tkv, d)) return e;
   Args a = make_args(b, h, h_kv, t, tkv, d, causal, window, row_offset,
                      prefix);
@@ -1779,6 +1790,7 @@ extern "C" int flash_attention_backward_dq_launch(
   a.lse_in = static_cast<const float*>(lse);
   a.dd = static_cast<const float*>(dd);
   a.dq = dq;
+  a.grad_f32 = grad_f32;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dq<float>(a, s);
   if (dtype == 1)
@@ -1790,7 +1802,7 @@ extern "C" int flash_attention_backward_dkv_launch(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dd, void* dk, void* dv, int b, int h,
     int h_kv, int t, int tkv, int d, int causal, int window, int row_offset,
-    int prefix, void* stream) {
+    int prefix, int grad_f32, void* stream) {
   if (int e = check_shape(b, h, h_kv, t, tkv, d)) return e;
   Args a = make_args(b, h, h_kv, t, tkv, d, causal, window, row_offset,
                      prefix);
@@ -1802,6 +1814,7 @@ extern "C" int flash_attention_backward_dkv_launch(
   a.dd = static_cast<const float*>(dd);
   a.dk = dk;
   a.dv = dv;
+  a.grad_f32 = grad_f32;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dkv<float>(a, s);
   if (dtype == 1)

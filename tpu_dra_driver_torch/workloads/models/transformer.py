@@ -194,21 +194,28 @@ def apply_rope(x: torch.Tensor, pos0=0, theta: float = 10000.0
     return out.to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
+def _mlp(x: torch.Tensor, layer: Params, spmd=None) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
-    return mm(F.gelu(mm(x, layer["w_up"]), approximate="tanh"),
-              layer["w_down"])
+    out = mm(F.gelu(mm(x, layer["w_up"]), approximate="tanh"),
+             layer["w_down"])
+    # sharded: w_up column-parallel, w_down row-parallel, partial sums
+    return out if spmd is None else spmd.psum(out, ("tp",))
 
 
-def _moe(x: torch.Tensor, layer: Params) -> torch.Tensor:
+def _moe(x: torch.Tensor, layer: Params, spmd=None) -> torch.Tensor:
     """Softmax-gated dense mixture of experts: every expert runs on every
     token ([b, E, t, ff]) and the outputs are weighted by the gates,
-    computed in f32 and cast to x's dtype for the combine."""
+    computed in f32 and cast to x's dtype for the combine. Sharded, the
+    gates come from the whole router and each rank combines its own
+    experts (over ``ep``, each split over ``tp``), summed over both."""
     gates = torch.softmax((x @ layer["router"]).float(), dim=-1)
+    if spmd is not None:
+        gates = gates[..., spmd.expert_slice(layer["moe_up"].shape[0])]
     up = torch.einsum("btd,edf->betf", x, layer["moe_up"])
     act = F.gelu(up, approximate="tanh")
     down = torch.einsum("betf,efd->betd", act, layer["moe_down"])
-    return torch.einsum("bte,betd->btd", gates.to(x.dtype), down)
+    out = torch.einsum("bte,betd->btd", gates.to(x.dtype), down)
+    return out if spmd is None else spmd.psum(out, ("tp", "ep"))
 
 
 def _top_k(logits: torch.Tensor, k: int):
@@ -220,7 +227,7 @@ def _top_k(logits: torch.Tensor, k: int):
 
 
 def _moe_topk(x: torch.Tensor, layer: Params, top_k: int,
-              capacity_factor: float) -> torch.Tensor:
+              capacity_factor: float, spmd=None) -> torch.Tensor:
     """Top-k mixture of experts with capacity (GShard/Switch dispatch and
     combine). Each token's top_k experts by router logit, weighted by the
     softmax over those k logits; each (token, slot) takes its place in
@@ -230,10 +237,18 @@ def _moe_topk(x: torch.Tensor, layer: Params, top_k: int,
 
     Every shape comes from the input's shapes and the one-hots are
     comparisons with an ``arange``: nothing is read on the host, so a
-    CUDA graph can capture it."""
+    CUDA graph can capture it.
+
+    Sharded, the capacity and the queues are the whole sequence's: the
+    capacity counts every sequence shard's tokens, and each rank's
+    queue positions start after the slots that earlier shards' tokens
+    take. Each rank runs its own experts on its own tokens' slots (the
+    others' rows are zeros, which the expert FFN maps to zeros) and the
+    outputs are summed over ``tp`` and ``ep``."""
     b, t, d = x.shape
     n_e = layer["router"].shape[-1]
-    capacity = max(1, int(capacity_factor * top_k * t / n_e))
+    t_all = t if spmd is None else t * spmd.size(spmd.seq_axis)
+    capacity = max(1, int(capacity_factor * top_k * t_all / n_e))
     dev = x.device
 
     logits = (x @ layer["router"]).float()                     # [b,t,E]
@@ -244,7 +259,11 @@ def _moe_topk(x: torch.Tensor, layer: Params, top_k: int,
     # each (token, slot)'s place in its expert's queue: an exclusive
     # cumsum over the slots in (t, k) order
     flat = assign.reshape(b, t * top_k, n_e)
-    pos = (flat.cumsum(1) - flat).reshape(b, t, top_k, n_e)
+    pos = flat.cumsum(1) - flat
+    offsets = None if spmd is None else spmd.queue_offsets(flat.sum(1))
+    if offsets is not None:
+        pos = pos + offsets[:, None, :]
+    pos = pos.reshape(b, t, top_k, n_e)
     within = (pos < capacity).float() * assign                 # kept
     slot = (pos * assign).sum(-1)                              # [b,t,k]
     pos_oh = (slot[..., None] == torch.arange(
@@ -255,66 +274,94 @@ def _moe_topk(x: torch.Tensor, layer: Params, top_k: int,
     dispatch = torch.einsum("btke,btkc->btec", within, pos_oh)
     combine = torch.einsum("btke,btkc->btec", within * weights[..., None],
                            pos_oh)
+    if spmd is not None:
+        experts = spmd.expert_slice(layer["moe_up"].shape[0])
+        dispatch, combine = dispatch[:, :, experts], combine[:, :, experts]
 
     xin = torch.einsum("btec,btd->becd", dispatch.to(x.dtype), x)
     up = torch.einsum("becd,edf->becf", xin, layer["moe_up"])
     act = F.gelu(up, approximate="tanh")
     out = torch.einsum("becf,efd->becd", act, layer["moe_down"])
-    return torch.einsum("btec,becd->btd", combine.to(x.dtype), out)
+    out = torch.einsum("btec,becd->btd", combine.to(x.dtype), out)
+    return out if spmd is None else spmd.psum(out, ("tp", "ep"))
 
 
-def _ffn(xn2: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(xn2: torch.Tensor, layer: Params, cfg: ModelConfig,
+         spmd=None) -> torch.Tensor:
     """The block's FFN half: the dense MLP, the top-k MoE or the dense
     MoE, by the layer's params and the config; shared by the training
     forward, prefill, decode and the paged engine. Int8 expert banks are
     dequantized for the einsums (the dense leaves stay quantized for
-    :func:`mm`)."""
+    :func:`mm`). ``spmd``: the sharded step's layout (see
+    :func:`_spmd_of`)."""
     if "moe_up" not in layer:
-        return _mlp(xn2, layer)
+        return _mlp(xn2, layer, spmd)
     layer = ffn_weights(layer, xn2.dtype)
     if cfg.moe_top_k > 0:
-        return _moe_topk(xn2, layer, cfg.moe_top_k, cfg.moe_capacity_factor)
-    return _moe(xn2, layer)
+        return _moe_topk(xn2, layer, cfg.moe_top_k, cfg.moe_capacity_factor,
+                         spmd)
+    return _moe(xn2, layer, spmd)
 
 
 def _attention(x: torch.Tensor, layer: Params, n_heads: int,
                n_kv_heads: int = 0, attn_fn=None, use_rope: bool = False,
-               window: int = 0, prefix: int = 0) -> torch.Tensor:
+               window: int = 0, prefix: int = 0, spmd=None) -> torch.Tensor:
     """``attn_fn(q, k, v) -> out`` on [b, h, t, hd] tensors (default: the
     oracle :func:`attention_reference`); GQA when n_kv_heads < n_heads;
-    ``window``/``prefix`` > 0 are passed on to ``attn_fn``."""
+    ``window``/``prefix`` > 0 are passed on to ``attn_fn``. Sharded
+    (``spmd``), the rank runs its ``tp`` share of the heads at its
+    tokens' global positions, and the row-parallel ``wo``'s partial sums
+    are summed over ``tp``."""
     b, t, d = x.shape
     n_kv = n_kv_heads or n_heads
     hd = d // n_heads
     kv_d = hd * n_kv
-    qkv = mm(x, layer["wqkv"])                   # [b, t, d + 2 * kv_d]
-    q, k, v = qkv.split([d, kv_d, kv_d], dim=-1)
+    wqkv, pos0 = layer["wqkv"], 0
+    if spmd is not None:
+        wqkv = spmd.qkv_columns(wqkv, d, kv_d)
+        n_heads, n_kv = spmd.local_heads(n_heads, n_kv)
+        pos0 = spmd.seq_start(t)
+    qkv = mm(x, wqkv)                            # [b, t, d + 2 * kv_d]
+    q, k, v = qkv.split([hd * n_heads, hd * n_kv, hd * n_kv], dim=-1)
 
     def heads(z, nh):
         return z.reshape(b, t, nh, hd).transpose(1, 2)
 
     qh, kh = heads(q, n_heads), heads(k, n_kv)
     if use_rope:
-        qh, kh = apply_rope(qh), apply_rope(kh)
+        qh, kh = apply_rope(qh, pos0), apply_rope(kh, pos0)
     attn = attn_fn or attention_reference
     if window > 0:
         attn = functools.partial(attn, window=window)
     if prefix > 0:
         attn = functools.partial(attn, prefix=prefix)
     out = attn(qh, kh, heads(v, n_kv))
-    out = out.transpose(1, 2).reshape(b, t, d)
-    return mm(out, layer["wo"])
+    out = out.transpose(1, 2).reshape(b, t, hd * n_heads)
+    out = mm(out, layer["wo"])
+    return out if spmd is None else spmd.psum(out, ("tp",))
+
+
+def _spmd_of(attn_fn):
+    """The mesh layout that a sharded ``attn_fn`` carries
+    (:func:`..parallel.make_ring_attention`,
+    :func:`..parallel.make_ulysses_attention`), or None. With one, the
+    params are this rank's shards as ``param_shardings`` lays them out,
+    the tokens its ``batch_sharding`` shard, and the layers insert the
+    collectives that the reference's global arrays leave to XLA."""
+    return getattr(attn_fn, "spmd", None)
 
 
 def _make_block(cfg: ModelConfig, attn_fn):
     """The transformer block as a (x, layer) -> x function, the one
     definition :func:`forward` and :func:`forward_with_exit` run."""
+    spmd = _spmd_of(attn_fn)
+
     def block(x, layer):
         x = x + _attention(_rmsnorm(x, layer["ln1"]["g"]), layer,
                            cfg.n_heads, cfg.n_kv_heads, attn_fn,
                            use_rope=cfg.use_rope, window=cfg.window,
-                           prefix=cfg.prefix)
-        return x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg)
+                           prefix=cfg.prefix, spmd=spmd)
+        return x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg, spmd)
     return block
 
 
@@ -354,10 +401,19 @@ def _hidden_states(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Yields the embedded tokens, then the hidden state after each
     block in order. Stacked ``[L, ...]`` params (the ``scan_layers``
     layout) are walked as views, so gradients land on the stacked
-    leaves. ``remat`` checkpoints each block (see :func:`_remat`)."""
-    x = embed_lookup(params["embed"], tokens, cfg.dtype)
-    if not cfg.use_rope:
-        x = x + params["pos_embed"][:tokens.shape[1]]
+    leaves. ``remat`` checkpoints each block (see :func:`_remat`).
+    Sharded, the embedding is the vocab-parallel lookup and the learned
+    positions are the tokens' global ones."""
+    spmd = _spmd_of(attn_fn)
+    t = tokens.shape[1]
+    if spmd is None:
+        x = embed_lookup(params["embed"], tokens, cfg.dtype)
+        if not cfg.use_rope:
+            x = x + params["pos_embed"][:t]
+    else:
+        x = spmd.embed(params["embed"], tokens)
+        if not cfg.use_rope:
+            x = x + spmd.pos_rows(params["pos_embed"], t)
     yield x
     block = _make_block(cfg, attn_fn)
     if cfg.remat:
@@ -373,7 +429,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``return_hidden`` the final-normed hidden states [b, t, d].
     ``scan_layers`` and ``scan_unroll`` change only the params' layout
     here: PyTorch runs the layer loop eagerly, there is no trace to
-    shrink."""
+    shrink. With a sharded ``attn_fn`` (:func:`_spmd_of`) it runs on this
+    rank's shards and returns its shard of the logits: its batch and
+    sequence shard, and its ``tp`` share of the vocabulary."""
     for x in _hidden_states(params, tokens, cfg, attn_fn):
         pass
     x = _rmsnorm(x, params["final_norm"]["g"])
@@ -391,6 +449,8 @@ def forward_with_exit(params: Params, tokens: torch.Tensor,
     if cfg.scan_layers:
         raise ValueError("forward_with_exit needs per-layer params "
                          "(scan_layers=False)")
+    if _spmd_of(attn_fn) is not None:
+        raise ValueError("forward_with_exit runs on one device")
     if not (1 <= exit_layer <= cfg.n_layers):
         raise ValueError(
             f"exit_layer {exit_layer} outside [1, {cfg.n_layers}]")
@@ -428,8 +488,20 @@ def loss_fn(params: Params, batch: Tuple[torch.Tensor, torch.Tensor],
             cfg: ModelConfig, attn_fn=None, exit_layer: Optional[int] = None,
             exit_weight: float = 0.3) -> torch.Tensor:
     """Next-token NLL; with ``exit_layer``, ``(1 - w) * full + w * exit``
-    where exit is the NLL of the early-exit logits."""
+    where exit is the NLL of the early-exit logits. With a sharded
+    ``attn_fn`` on more than one rank, the global mean NLL (every rank
+    gets the same): the log-softmax reduced over the vocabulary's ``tp``
+    shards and the NLL summed over the batch and sequence shards, over
+    the global count."""
     tokens, targets = batch
+    spmd = _spmd_of(attn_fn)
+    if spmd is not None and spmd.world > 1:
+        if exit_layer is not None:
+            raise ValueError("the sharded loss takes no exit_layer")
+        x = forward(params, tokens, cfg, attn_fn, return_hidden=True)
+        nll = spmd.token_nll(lm_head(x, params["embed"]), targets)
+        return spmd.mean_nll(nll, spmd.positions_mask(
+            cfg.prefix, tokens.shape[1], tokens.device))
     pos = loss_positions(cfg, tokens.shape[1], tokens.device)
     if exit_layer is None:
         return nll_from_logits(forward(params, tokens, cfg, attn_fn),
@@ -500,7 +572,7 @@ class AdamW:
     ``optax.clip_by_global_norm(clip_norm)``. ``learning_rate`` is a
     number or a schedule ``step -> lr`` evaluated at the step count
     (0 on the first step). :meth:`init` builds the state over a params
-    tree."""
+    tree (``layout``: see :class:`OptState`)."""
 
     learning_rate: Union[float, Callable[[int], float]] = 1e-3
     b1: float = 0.9
@@ -509,8 +581,8 @@ class AdamW:
     weight_decay: float = 1e-4
     clip_norm: Optional[float] = None
 
-    def init(self, params: Params) -> "OptState":
-        return OptState(self, params)
+    def init(self, params: Params, layout=None) -> "OptState":
+        return OptState(self, params, layout)
 
 
 def _trainable_leaves(params: Params) -> List[torch.Tensor]:
@@ -529,16 +601,25 @@ class OptState:
     """The optimizer's state over one params tree: ``torch.optim.AdamW``
     over its leaves (moments in each leaf's dtype, as optax keeps them),
     a ``LambdaLR`` that sets step k's rate to ``schedule(k)``, and the
-    clip norm. Creating it sets ``requires_grad`` on every leaf."""
+    clip norm. Creating it sets ``requires_grad`` on every leaf.
 
-    def __init__(self, spec: AdamW, params: Params):
+    ``layout`` (a sharded step's :class:`..parallel.spmd.Layout`, whose
+    ``init`` passes it): the params are this rank's shards; the global
+    norm sums over the shards, and a leaf with a ZeRO-1 dim keeps the
+    moments of its ``dp`` slice only, updates that slice and joins the
+    slices back after each step."""
+
+    def __init__(self, spec: AdamW, params: Params, layout=None):
         self.spec = spec
         self.leaves = _trainable_leaves(params)
         self.paths = _leaf_paths(params)
+        self.layout = layout
+        self.targets = self.leaves if layout is None else [
+            layout.zero_view(i, leaf) for i, leaf in enumerate(self.leaves)]
         lr = spec.learning_rate
         schedule = lr if callable(lr) else (lambda step: lr)
         self.optimizer = torch.optim.AdamW(
-            self.leaves, lr=1.0, betas=(spec.b1, spec.b2), eps=spec.eps,
+            self.targets, lr=1.0, betas=(spec.b1, spec.b2), eps=spec.eps,
             weight_decay=spec.weight_decay)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer,
                                                            schedule)
@@ -553,11 +634,11 @@ class OptState:
         its first update starts from, so the names and shapes are the
         same before the first step."""
         out = {"count": self.scheduler.last_epoch}
-        for path, leaf in zip(self.paths, self.leaves):
-            st = self.optimizer.state.get(leaf, {})
+        for path, target in zip(self.paths, self.targets):
+            st = self.optimizer.state.get(target, {})
             for name in ("exp_avg", "exp_avg_sq"):
                 out[f"{path}.{name}"] = st[name] if name in st \
-                    else torch.zeros_like(leaf)
+                    else torch.zeros_like(target)
             out[f"{path}.step"] = st["step"] if "step" in st \
                 else torch.tensor(0.0, dtype=torch.float32)
         return out
@@ -570,12 +651,12 @@ class OptState:
             f"{path}.{name}" for path in self.paths
             for name in ("exp_avg", "exp_avg_sq", "step")], "AdamW")
         count = int(state["count"])
-        for path, leaf in zip(self.paths, self.leaves):
-            self.optimizer.state[leaf] = {
+        for path, target in zip(self.paths, self.targets):
+            self.optimizer.state[target] = {
                 "step": state[f"{path}.step"].detach().to(
                     "cpu", torch.float32, copy=True),
                 **{name: state[f"{path}.{name}"].detach().to(
-                    leaf.device, leaf.dtype, copy=True)
+                    target.device, target.dtype, copy=True)
                    for name in ("exp_avg", "exp_avg_sq")}}
         # what count updates leave in LambdaLR and the optimizer's group
         self.scheduler.last_epoch = count
@@ -592,13 +673,15 @@ class OptState:
         leaf, in the leaves' dtypes)."""
         grads = list(grads)
         if self.clip_norm is not None:
-            _clip_by_global_norm(grads, self.clip_norm)
-        for leaf, g in zip(self.leaves, grads):
-            leaf.grad = g
+            _clip_by_global_norm(grads, self.clip_norm, self.layout)
+        for target, g in zip(self.targets, grads):
+            target.grad = g
         self.optimizer.step()
         self.scheduler.step()
-        for leaf in self.leaves:
-            leaf.grad = None
+        for target in self.targets:
+            target.grad = None
+        if self.layout is not None:
+            self.layout.gather_zero(self.leaves)
 
 
 # optax.adafactor's defaults, the reference's settings: second moments
@@ -627,8 +710,8 @@ class Adafactor:
     learning_rate: Union[float, Callable[[int], float]] = 1e-3
     clip_norm: Optional[float] = None
 
-    def init(self, params: Params) -> "AdafactorState":
-        return AdafactorState(self, params)
+    def init(self, params: Params, layout=None) -> "AdafactorState":
+        return AdafactorState(self, params, layout)
 
 
 def _factored_dims(shape) -> Optional[Tuple[int, int]]:
@@ -650,24 +733,67 @@ class AdafactorState:
     leaf's dtype (as optax keeps them), and the step count. optax keeps
     one count in each transform that has one (the factored RMS and the
     schedule); each advances once per update, so one count stands for
-    both. Creating it sets ``requires_grad`` on every leaf."""
+    both. Creating it sets ``requires_grad`` on every leaf.
 
-    def __init__(self, spec: Adafactor, params: Params):
+    ``layout`` (as :class:`OptState`'s): the factoring follows each
+    leaf's global shape, the row and column factors are whole on every
+    rank (the reference replicates them), a whole second moment follows
+    the leaf's shard (its ``dp`` slice under ZeRO-1), and the means over
+    a dim or a whole leaf sum over its shards."""
+
+    def __init__(self, spec: Adafactor, params: Params, layout=None):
         self.spec = spec
         self.leaves = _trainable_leaves(params)
         self.paths = _leaf_paths(params)
+        self.layout = layout
+        self.targets = self.leaves if layout is None else [
+            layout.zero_view(i, leaf) for i, leaf in enumerate(self.leaves)]
         self.count = 0
         self.dims, self.v = [], []
-        for leaf in self.leaves:
-            dims = _factored_dims(tuple(leaf.shape))
+        for i, (leaf, target) in enumerate(zip(self.leaves, self.targets)):
+            shape = tuple(leaf.shape) if layout is None \
+                else layout.global_shapes[i]
+            dims = _factored_dims(shape)
             self.dims.append(dims)
             if dims is None:
-                self.v.append(torch.zeros_like(leaf))
+                self.v.append(torch.zeros_like(target))
             else:
+                if layout is not None and layout.zero_dims[i] is not None:
+                    raise ValueError(f"{self.paths[i]}: Adafactor's factors "
+                                     f"take no ZeRO-1 dim")
                 d1, d0 = dims
                 self.v.append(tuple(
-                    leaf.new_zeros(np.delete(leaf.shape, d).tolist())
+                    leaf.new_zeros(np.delete(shape, d).tolist())
                     for d in (d0, d1)))                 # (v_row, v_col)
+
+    def _sharded(self) -> bool:
+        return self.layout is not None and self.layout.world > 1
+
+    def _mean(self, x: torch.Tensor, dim: int, i: int) -> torch.Tensor:
+        """The mean of leaf i's ``x`` over ``dim``, whole (every shard's
+        rows, every rank the same)."""
+        if not self._sharded():
+            return x.mean(dim=dim)
+        spec = self.layout.specs[i]
+        s = self.layout.sum_over(x.float().sum(dim=dim), (spec[dim],))
+        s = s / self.layout.global_shapes[i][dim]
+        return self.layout.full(s.to(x.dtype),
+                                spec[:dim] + spec[dim + 1:])
+
+    def _block(self, x: torch.Tensor, i: int, dropped: int) -> torch.Tensor:
+        """This rank's block of a whole factor of leaf i (the leaf's
+        dims less ``dropped``)."""
+        if not self._sharded():
+            return x
+        spec = self.layout.specs[i]
+        return self.layout.block(x, spec[:dropped] + spec[dropped + 1:])
+
+    def _mean_all(self, x: torch.Tensor, i: int, spec) -> torch.Tensor:
+        """The mean over the whole leaf of ``x``, held under ``spec``."""
+        if not self._sharded():
+            return x.mean()
+        s = self.layout.sum_over(x.float().sum(), spec)
+        return (s / math.prod(self.layout.global_shapes[i])).to(x.dtype)
 
     def state_dict(self) -> Dict:
         """The state as optax's pytree holds it, every tensor named by its
@@ -707,7 +833,7 @@ class AdafactorState:
         dtype, the update in the leaf's dtype."""
         grads = list(grads)
         if self.spec.clip_norm is not None:
-            _clip_by_global_norm(grads, self.spec.clip_norm)
+            _clip_by_global_norm(grads, self.spec.clip_norm, self.layout)
         # optax's _decay_rate_pow, in f32
         t = np.float32(self.count + 1)
         decay = float(np.float32(1.0)
@@ -725,34 +851,51 @@ class AdafactorState:
                 d1, d0 = self.dims[i]
                 v_row, v_col = (
                     (decay * old.float()
-                     + (1.0 - decay) * g_sqr.mean(dim=d).float()
+                     + (1.0 - decay) * self._mean(g_sqr, d, i).float()
                      ).to(leaf.dtype)
                     for old, d in zip(self.v[i], (d0, d1)))
                 self.v[i] = (v_row, v_col)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_factor = (v_row / v_row.mean(dim=reduced_d1,
                                                  keepdim=True)) ** -0.5
-                u = (g * row_factor.unsqueeze(d0)
-                     * (v_col ** -0.5).unsqueeze(d1))
+                u = (g * self._block(row_factor, i, d0).unsqueeze(d0)
+                     * self._block(v_col ** -0.5, i, d1).unsqueeze(d1))
             del g_sqr
             # clip_by_block_rms, the learning rate (rounded to the leaf's
             # dtype, as optax's scale_by_schedule does), the parameter
             # scale, and the step down the gradient
-            rms = u.square().mean().sqrt()
+            held = self.layout.held_spec(i) if self._sharded() else ()
+            rms = self._mean_all(u.square(), i, held).sqrt()
             u = u / (rms / ADAFACTOR_CLIP_RMS).clamp_min(1.0)
             u = u * float(torch.tensor(lr, dtype=leaf.dtype))
-            u = u * leaf.square().mean().sqrt().clamp_min(
-                ADAFACTOR_MIN_SCALE)
-            leaf.sub_(u)
+            u = u * self._mean_all(
+                leaf.square(), i,
+                self.layout.specs[i] if self._sharded() else ()
+            ).sqrt().clamp_min(ADAFACTOR_MIN_SCALE)
+            self.targets[i].sub_(u)
         self.count += 1
+        if self.layout is not None:
+            self.layout.gather_zero(self.leaves)
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                         layout=None) -> None:
     """``optax.clip_by_global_norm``, in place: when the global norm is at
     least ``max_norm`` each gradient becomes ``g / norm * max_norm``
-    (no epsilon, unlike ``clip_grad_norm_``). The norm is taken in f32."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    (no epsilon, unlike ``clip_grad_norm_``). The norm is taken in f32.
+    With a sharded ``layout`` on more than one rank, each gradient is a
+    shard (or a ZeRO-1 slice) and its squares are summed over the axes
+    that split it."""
+    norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+    if layout is not None and layout.world > 1:
+        by_spec: Dict[tuple, List[torch.Tensor]] = {}
+        for i, n in enumerate(norms):
+            spec = tuple(sorted({a for a in layout.held_spec(i) if a}))
+            by_spec.setdefault(spec, []).append(n * n)
+        norm = sum(layout.sum_over(torch.stack(sq).sum(), spec)
+                   for spec, sq in by_spec.items()).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -802,14 +945,30 @@ def make_train_step(cfg: ModelConfig,
 
     ``accum_steps > 1`` splits the batch into that many microbatches,
     accumulates their gradients in f32 and hands the optimizer their
-    mean in each param's dtype."""
+    mean in each param's dtype.
+
+    With a sharded ``attn_fn`` (:func:`..parallel.make_ring_attention`
+    over a ``build_mesh_spmd`` mesh) the step runs on this rank's shards
+    of the params (``param_shardings``) and of the batch
+    (``batch_sharding``) and returns the global loss. The gradient is
+    taken of ``loss / world`` (the collectives' backwards are their
+    transposes, so each rank's gradient is its share of the sum over
+    ranks) and summed, for each leaf, over the axes that hold the leaf
+    replicated. ``init_opt_state(params, shardings=None)`` then takes the
+    shardings of :func:`..parallel.zero1_opt_shardings` (ZeRO-1) or,
+    without them, keeps every moment as its param is sharded. On a mesh
+    whose axes are all 1 the step computes what the unsharded step
+    computes."""
     opt = optimizer or AdamW(1e-3)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    spmd = _spmd_of(attn_fn)
+    scale = 1.0 if spmd is None or spmd.world == 1 else 1.0 / spmd.world
 
     def loss_and_grads(params, batch, leaves):
         loss = loss_fn(params, batch, cfg, attn_fn, exit_layer, exit_weight)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+        grads = torch.autograd.grad(loss if scale == 1.0 else loss * scale,
+                                    leaves, allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), grads
 
@@ -838,10 +997,43 @@ def make_train_step(cfg: ModelConfig,
             grads = [(acc / accum_steps).to(p.dtype)
                      for acc, p in zip(gsum, leaves)]
             loss = lsum / accum_steps
+        if spmd is not None:
+            if opt_state.layout is None:
+                raise ValueError("a sharded step takes the optimizer state "
+                                 "of its own init_opt_state")
+            grads = opt_state.layout.sync(grads)
         opt_state.apply(grads)
         return params, opt_state, loss
 
-    return train_step, opt.init
+    if spmd is None:
+        return train_step, opt.init
+
+    def init_opt_state(params, shardings=None):
+        return opt.init(params, layout=_sharded_layout(spmd, params,
+                                                       shardings))
+
+    return train_step, init_opt_state
+
+
+def _sharded_layout(spmd, params: Params, shardings=None):
+    """The :class:`..parallel.spmd.Layout` of this rank's shards
+    ``params``: each leaf's ``param_shardings`` spec, and its ZeRO-1 dim
+    where ``shardings`` (:func:`..parallel.zero1_opt_shardings`) puts
+    ``dp`` on the moment that mirrors it."""
+    from tpu_dra_driver_torch.workloads.parallel.mesh import param_shardings
+    from tpu_dra_driver_torch.workloads.parallel.spmd import Layout
+    leaves = _param_leaves(params)
+    specs = [sh.spec for sh in _param_leaves(
+        param_shardings(spmd.mesh, params))]
+    zero_dims = []
+    for path in _leaf_paths(params):
+        dim = None
+        for name in ("exp_avg", "v"):
+            sh = (shardings or {}).get(f"{path}.{name}")
+            if sh is not None and "dp" in sh.spec:
+                dim = sh.spec.index("dp")
+        zero_dims.append(dim)
+    return Layout(spmd, leaves, specs, zero_dims)
 
 
 def train_tokens_per_sec(b: int = 8, t: int = 2048, iters: int = 3,

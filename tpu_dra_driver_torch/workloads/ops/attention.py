@@ -212,29 +212,38 @@ def _backward_terms(q, k, v, dout, lse, dd, causal, window, row_offset,
     return p, ds.to(q.dtype).float(), do
 
 
+def _grad_dtype(x: torch.Tensor, f32_out: bool) -> torch.dtype:
+    return torch.float32 if f32_out else x.dtype
+
+
 def _flash_backward_dq_plain(q, k, v, dout, lse, dd, causal=True,
-                             window=None, row_offset=0, prefix=None):
+                             window=None, row_offset=0, prefix=None,
+                             f32_out=False):
     """Kernel B2 in plain PyTorch with its numerics
-    (:func:`_backward_terms`): dq = dS . K / sqrt(d) in q's dtype."""
+    (:func:`_backward_terms`): dq = dS . K / sqrt(d) in q's dtype, or in
+    f32 with ``f32_out``."""
     _, ds, _ = _backward_terms(q, k, v, dout, lse, dd, causal, window,
                                row_offset, prefix)
     dq = torch.einsum("bkgts,bksd->bkgtd", ds, k.float())
     scale = 1.0 / math.sqrt(q.shape[-1])
-    return (dq * scale).to(q.dtype).reshape(q.shape)
+    return (dq * scale).to(_grad_dtype(q, f32_out)).reshape(q.shape)
 
 
 def _flash_backward_dkv_plain(q, k, v, dout, lse, dd, causal=True,
-                              window=None, row_offset=0, prefix=None):
+                              window=None, row_offset=0, prefix=None,
+                              f32_out=False):
     """Kernel B3 in plain PyTorch with its numerics
     (:func:`_backward_terms`): dk = dS^T . Q / sqrt(d) and dv = P^T . dO,
-    each summed over the GQA group, with P rounded to V's dtype."""
+    each summed over the GQA group, with P rounded to V's dtype; in K/V's
+    dtype, or in f32 with ``f32_out``."""
     p, ds, do = _backward_terms(q, k, v, dout, lse, dd, causal, window,
                                 row_offset, prefix)
     dk = torch.einsum("bkgts,bkgtd->bksd", ds,
                       _grouped(q, k.shape[1]).float())
     dv = torch.einsum("bkgts,bkgtd->bksd", p.to(v.dtype).float(), do)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+    return ((dk * scale).to(_grad_dtype(k, f32_out)),
+            dv.to(_grad_dtype(v, f32_out)))
 
 
 def _flash_backward_plain(q, k, v, dout, lse, dd, causal=True, window=None,
@@ -331,16 +340,18 @@ def _backward_inputs(q, k, v, dout, lse, dd):
 
 
 def flash_backward_dq(q, k, v, dout, lse, dd, causal=True, window=None,
-                      row_offset=0, prefix=None) -> torch.Tensor:
-    """Kernel B2: dq [b, h, t, d] from (q, k, v, dO, lse, D). CPU tensors
-    take :func:`_flash_backward_dq_plain`."""
+                      row_offset=0, prefix=None,
+                      f32_out=False) -> torch.Tensor:
+    """Kernel B2: dq [b, h, t, d] from (q, k, v, dO, lse, D), in q's
+    dtype or, with ``f32_out``, in f32 (a sum of several calls' dq then
+    rounds once). CPU tensors take :func:`_flash_backward_dq_plain`."""
     if _on_cpu(q, k, v, dout, lse, dd):
         return _flash_backward_dq_plain(q, k, v, dout, lse, dd, causal,
-                                        window, row_offset, prefix)
+                                        window, row_offset, prefix, f32_out)
     q, k, v, dout, lse, dd = _backward_inputs(q, k, v, dout, lse, dd)
     b, h, t, d = q.shape
     h_kv, tkv = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q, dtype=_grad_dtype(q, f32_out))
     if q.numel() == 0:
         return dq
     lib = _kernel_library()
@@ -349,7 +360,7 @@ def flash_backward_dq(q, k, v, dout, lse, dd, causal=True, window=None,
             _KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
             dq.data_ptr(), b, h, h_kv, t, tkv, d,
-            *_mask_ints(causal, window, row_offset, prefix),
+            *_mask_ints(causal, window, row_offset, prefix), int(f32_out),
             _stream(q.device))
     _raise_on(rc, "flash_backward_dq", lib)
     flash_backward_dq.launches += 1
@@ -360,17 +371,20 @@ flash_backward_dq.launches = 0
 
 
 def flash_backward_dkv(q, k, v, dout, lse, dd, causal=True, window=None,
-                       row_offset=0, prefix=None
+                       row_offset=0, prefix=None, f32_out=False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B3: (dk, dv) [b, h_kv, tkv, d], each summed over its GQA
-    group. CPU tensors take :func:`_flash_backward_dkv_plain`."""
+    group, in K/V's dtype or, with ``f32_out``, in f32. CPU tensors take
+    :func:`_flash_backward_dkv_plain`."""
     if _on_cpu(q, k, v, dout, lse, dd):
         return _flash_backward_dkv_plain(q, k, v, dout, lse, dd, causal,
-                                         window, row_offset, prefix)
+                                         window, row_offset, prefix,
+                                         f32_out)
     q, k, v, dout, lse, dd = _backward_inputs(q, k, v, dout, lse, dd)
     b, h, t, d = q.shape
     h_kv, tkv = k.shape[1], k.shape[2]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk = torch.empty_like(k, dtype=_grad_dtype(k, f32_out))
+    dv = torch.empty_like(v, dtype=_grad_dtype(v, f32_out))
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
     lib = _kernel_library()
@@ -379,7 +393,7 @@ def flash_backward_dkv(q, k, v, dout, lse, dd, causal=True, window=None,
             _KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, h_kv, t, tkv, d,
-            *_mask_ints(causal, window, row_offset, prefix),
+            *_mask_ints(causal, window, row_offset, prefix), int(f32_out),
             _stream(q.device))
     _raise_on(rc, "flash_backward_dkv", lib)
     flash_backward_dkv.launches += 1
@@ -397,9 +411,9 @@ def _kernel_library() -> ctypes.CDLL:
         lib.flash_attention_forward_launch.argtypes = (
             [i, p, p, p, p, p] + [i] * 6 + mask + [p])
         lib.flash_attention_backward_dq_launch.argtypes = (
-            [i, p, p, p, p, p, p, p] + [i] * 6 + mask + [p])
+            [i, p, p, p, p, p, p, p] + [i] * 6 + mask + [i, p])
         lib.flash_attention_backward_dkv_launch.argtypes = (
-            [i, p, p, p, p, p, p, p, p] + [i] * 6 + mask + [p])
+            [i, p, p, p, p, p, p, p, p] + [i] * 6 + mask + [i, p])
         for fn in (lib.flash_attention_forward_launch,
                    lib.flash_attention_backward_dq_launch,
                    lib.flash_attention_backward_dkv_launch):
