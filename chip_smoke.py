@@ -4,9 +4,10 @@
 Drives the port's serving, generation and training paths, the
 mixture-of-experts, Adafactor, LoRA, masked-LM encoder, encoder-decoder,
 beam-search and speculative-decoding paths, the input pipeline,
-checkpoints, profiling, the single-device benchmarks and the sharded
-training tier (at world size 1), on one CUDA card and checks them; imports no JAX. Phases, each of which fails the
-run when it fails:
+checkpoints, profiling, the single-device benchmarks, the sharded
+training tier, the GPipe pipeline and the sharded inference and state
+callers (at world size 1), on one CUDA card and checks them; imports no
+JAX. Phases, each of which fails the run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
 2. build: the CUDA kernels from the sources in the checkout, one nvcc
@@ -190,10 +191,32 @@ run when it fails:
    ``make_ring_attention``, against ``make_train_step`` with
    ``flash_attention`` on the same weights: losses within 1e-5
    relative, params within one bf16 ulp after four steps, ms per step
-   of both.
+   of both;
+28. the GPipe train step at world size 1: ``make_pp_train_step`` over
+   a pp axis of one rank on the training cell's widths with learned
+   positions and no remat (``PP_FULL``: the reference's pipeline adds
+   ``pos_embed`` and applies no RoPE), batch 8 x 2048, flash attention,
+   against ``make_train_step`` on the same weights: with one microbatch
+   losses within 1e-5 relative and params within one bf16 ulp after
+   four steps, with four the losses within TOL_PP_MICRO_LOSS_REL and
+   the params' update within TOL_PP_MICRO_UPDATE_REL of its size; ms per
+   step, peak memory and B1-B3's launches (8 x microbatches a step);
+29. int8 ``generate`` under the (dp, tp) mesh of one rank at the
+   generation cell (batch 8, prompt 2048, 32 steps) against the
+   unsharded int8 ``generate``: tokens equal, every step's
+   teacher-forced logits bit-equal, B5's launches equal; device ms per
+   decode step of both, timed in both orders;
+30. the engine with kv-head-sharded pools and tp-sharded params at the
+   serving cell against the solo engine: tokens identical, 570 B4
+   launches each; device tokens/s;
+31. the sharded seq2seq loss at the seq2seq cell bit-equal to the
+   unsharded one; phase 27's dense state saved from the mesh and
+   restored onto the mesh and onto the card alone (bit-equal, the
+   resumed step bit-identical; GB and seconds); ``prefetch_to_device``
+   with ``sharding``; ``dryrun_multichip(1)`` over NCCL.
 
-Phases 1-2 run in the script's own process, phases 3-20, 21-24 and
-25-27 in three processes of the script that it starts one after the
+Phases 1-2 run in the script's own process, phases 3-20, 21-24, 25-27
+and 28-31 in four processes of the script that it starts one after the
 other (see ``HALF``). It then prints one ``{"kernels": [...]}`` line, the card's
 name and power limit and, last, the device line ``{"ok": true,
 "device": {...}}``. Without a CUDA card it exits
@@ -223,6 +246,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from tpu_dra_driver_torch import entry
 from tpu_dra_driver_torch.workloads import data
@@ -234,7 +258,7 @@ from tpu_dra_driver_torch.workloads.models import speculative as spec
 from tpu_dra_driver_torch.workloads.models import transformer as tt
 from tpu_dra_driver_torch.workloads.models.generate import (
     _step_body, block_prefill, chunked_prefill, decode_step,
-    decode_tokens_per_sec, generate, init_kv_cache, wide_step,
+    decode_tokens_per_sec, generate, init_kv_cache, local_params, wide_step,
 )
 from tpu_dra_driver_torch.workloads.models.quantize import quantize_params
 from tpu_dra_driver_torch.workloads.models.serving import (
@@ -249,10 +273,11 @@ from tpu_dra_driver_torch.workloads.ops import collectives as co
 from tpu_dra_driver_torch.workloads.ops import decode_attention as da
 from tpu_dra_driver_torch.workloads.ops import paged_attention as pa
 from tpu_dra_driver_torch.workloads.parallel import mesh as pm
+from tpu_dra_driver_torch.workloads.parallel import pipeline as pp
 from tpu_dra_driver_torch.workloads.parallel import ringattention as pr
 from tpu_dra_driver_torch.workloads.utils import timing
 from tpu_dra_driver_torch.workloads.utils.checkpoint import (
-    abstract_like, restore_train_state, save_train_state,
+    abstract_like, on_one_device, restore_train_state, save_train_state,
 )
 from tpu_dra_driver_torch.workloads.utils.profiling import (
     annotate, latest_trace, trace_to,
@@ -3906,6 +3931,388 @@ def sharded_step_phase(card: str) -> None:
         dist.destroy_process_group()
 
 
+# --------------------------------------------- phases 28-31 (fourth half)
+
+# the GPipe train step at the training cell's widths, learned positions
+# (the reference's pipeline adds pos_embed and its stages apply no RoPE)
+# and no remat (the reference's stages take none)
+PP_FULL = replace(FULL_TRAIN, use_rope=False, remat=False)
+PP_MICRO = (1, 4)
+# pp step over 4 microbatches against make_train_step on the whole
+# batch: the same function, with cuBLAS's products at M = 2 x 2048 rows
+# in place of 8 x 2048 and the stage's gradients summed in bf16 over the
+# microbatches, so roundings fall otherwise. Params are held by their
+# update: |pp - plain| over |plain - init|, both over every element of
+# every leaf (a bf16 ulp is no unit here: AdamW's first update is
+# lr x the gradient's sign, and a gradient within rounding of 0 flips
+# it on a weight near 0, thousands of that weight's ulps). Each limit
+# lies between the sound run's reading and those of the runs with three
+# microbatches' gradients dropped or the outputs one slot on
+# (tools/pp_fault_reading.py), nearer the sound one: on the H100 the
+# loss read 1.2e-5 sound and 8.6e-2 and 9.4e-2 broken, the update
+# 1.9e-2 sound and 1.10 and 1.22 broken (PERF.md).
+TOL_PP_MICRO_LOSS_REL = 1e-4
+TOL_PP_MICRO_UPDATE_REL = 0.1
+# int8 generate under a (dp, tp) mesh of one rank at the generation
+# cell: batch 8, prompt 2048, 32 steps
+SHARDED_GEN_STEPS = 32
+# sharded prefetch: batches of the prefetch phase's shape
+SHARDED_PREFETCH_BATCHES = 4
+# the device type of the fourth half's meshes (NCCL on the card)
+MESH_DEVICE = "cuda"
+
+
+def _clone(node):
+    """A detached copy of a params tree on its device."""
+    if isinstance(node, dict):
+        return {k: _clone(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_clone(v) for v in node]
+    return node.detach().clone()
+
+
+def _train_batch(cfg):
+    b, t = FULL_TRAIN_BATCH
+    tokens = torch.randint(0, cfg.vocab, (b, t),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    return tokens, tokens
+
+
+def _update_rel(got: dict, want: dict, init: dict) -> float:
+    """|got - want| over |want - init|, each the norm over every element
+    of the trees' leaves (the same keys in all three), in f32."""
+    apart = moved = 0.0
+    for k in want:
+        w = want[k].float()
+        apart += (got[k].float() - w).square().sum().item()
+        moved += (w - init[k].float()).square().sum().item()
+    return (apart / moved) ** 0.5
+
+
+def _pp_leaves(pp_params: dict) -> dict:
+    """The pipeline layout's leaves by name: its stages' and the
+    replicated ones."""
+    out = {f"stages.{k}": v for k, v in pp_params["stages"].items()}
+    out.update({k: pp_params[k] for k in ("embed", "pos_embed",
+                                          "final_norm_g")})
+    return out
+
+
+def pipeline_phase(card: str, micro=PP_MICRO) -> None:
+    """Phase 28: ``make_pp_train_step`` over a pp axis of one rank at
+    the training cell's widths through B1-B3, against ``make_train_step``
+    on the same weights and batch: with one microbatch the losses within
+    TOL_SHARDED_LOSS_REL and the params within one bf16 ulp after the
+    four steps, with four the losses within TOL_PP_MICRO_LOSS_REL and
+    the params' update within TOL_PP_MICRO_UPDATE_REL (``micro``: the
+    microbatch counts to run)."""
+    t0 = time.perf_counter()
+    params = init_params(PP_FULL, 0, device=DEV)
+    batch = _train_batch(PP_FULL)
+    mesh = DeviceMesh(MESH_DEVICE, torch.tensor([0]),
+                      mesh_dim_names=("pp",))
+    step, init = tt.make_train_step(PP_FULL, attn_fn=fa.flash_attention)
+    plain = _clone(params)
+    state = init(plain)
+    first = step(plain, state, batch)[2].item()
+    p_ms, p_losses, p_launches, p_peak = _timed_steps(
+        lambda: step(plain, state, batch)[2])
+    want = pp.stack_layers(tt.unstack_layer_params(plain)["layers"], 1)
+    want_all = _pp_leaves(pp.params_to_pp(plain, 1))
+    init_all = _pp_leaves(pp.params_to_pp(params, 1))
+    print(f"{card}: GPipe, the training cell with learned positions and no "
+          f"remat ({tt.param_count(params) / 1e6:.1f}M params, batch "
+          f"{FULL_TRAIN_BATCH[0]}x{FULL_TRAIN_BATCH[1]}, AdamW(1e-3), "
+          f"flash attention), set-up {time.perf_counter() - t0:.1f} s; "
+          f"make_train_step {p_ms:.2f} ms/step, peak {p_peak / 2**30:.2f} "
+          f"GiB, losses {[first] + p_losses}; flash launches {p_launches}")
+    for n_micro in micro:
+        pp_params = _clone(pp.params_to_pp(params, 1))
+        pp_params = pm.device_put(pp_params,
+                                  pp.pp_param_shardings(mesh, pp_params))
+        pp_step, pp_init = pp.make_pp_train_step(
+            mesh, PP_FULL, 1, n_micro, attn_fn=fa.flash_attention)
+        pp_state = pp_init(pp_params)
+        pp_first = pp_step(pp_params, pp_state, batch)[2].item()
+        ms, losses, launches, peak = _timed_steps(
+            lambda: pp_step(pp_params, pp_state, batch)[2])
+        rel = max(abs(x - y) / abs(y) for x, y in zip(
+            [pp_first] + losses, [first] + p_losses))
+        apart = max([_bf16_ulps_apart(pp_params["stages"][k][0], want[k][0])
+                     for k in want] + [_bf16_ulps_apart(
+                         pp_params[k], plain[k]) for k in ("embed",
+                                                           "pos_embed")]
+                    + [_bf16_ulps_apart(pp_params["final_norm_g"],
+                                        plain["final_norm"]["g"])])
+        update = _update_rel(_pp_leaves(pp_params), want_all, init_all)
+        expect = {name: PP_FULL.n_layers * n_micro * TIMED_STEPS
+                  for name in ("flash_forward", "flash_backward_dq",
+                               "flash_backward_dkv")}
+        tol = TOL_SHARDED_LOSS_REL if n_micro == 1 else TOL_PP_MICRO_LOSS_REL
+        print(f"{card}: GPipe pp=1, {n_micro} microbatch(es): {ms:.2f} "
+              f"ms/step ({ms / p_ms - 1:+.2%} against make_train_step), "
+              f"peak {peak / 2**30:.2f} GiB; losses {[pp_first] + losses}, "
+              f"largest relative difference {rel:.3e} (allowed {tol:.0e}); "
+              f"params {apart:.2f} bf16 ulps apart at most, their update "
+              f"{update:.3e} apart relative to its size"
+              + ("" if n_micro == 1 else
+                 f" (allowed {TOL_PP_MICRO_UPDATE_REL:.0e})")
+              + f"; flash launches {launches} ({PP_FULL.n_layers} x "
+              f"{n_micro} a step)")
+        if launches != expect:
+            raise AssertionError(f"GPipe: flash kernels launched {launches}, "
+                                 f"expected {expect}")
+        if not rel <= tol:
+            raise AssertionError(f"GPipe, {n_micro} microbatch(es): losses "
+                                 f"{losses} against {p_losses}")
+        if n_micro == 1 and not apart <= 1.0:
+            raise AssertionError(f"GPipe: params {apart} bf16 ulps from "
+                                 f"make_train_step's")
+        if n_micro > 1 and not update <= TOL_PP_MICRO_UPDATE_REL:
+            raise AssertionError(f"GPipe, {n_micro} microbatches: the "
+                                 f"params' update {update:.3e} apart from "
+                                 f"make_train_step's, relative to its size")
+        _check_losses(pp_first, losses, f"GPipe, {n_micro} microbatch(es)")
+        del pp_params, pp_state
+        torch.cuda.empty_cache()
+
+
+def _teacher_forced(params, cfg, tokens, t0, mesh=None):
+    """Logits of the prefill and of each decode step over ``tokens``."""
+    cache = init_kv_cache(cfg, tokens.shape[0], tokens.shape[1],
+                          device=DEV, mesh=mesh)
+    logits, cache, _ = block_prefill(params, cfg, cache, tokens[:, :t0],
+                                     mesh=mesh)
+    out = [logits]
+    for pos in range(t0, tokens.shape[1] - 1):
+        logits, cache = decode_step(params, cfg, cache, pos, tokens[:, pos],
+                                    mesh=mesh)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def sharded_generation_phase(card: str, mesh) -> None:
+    """Phase 29: int8 ``generate`` under the (dp, tp) mesh of one rank at
+    the generation cell against the unsharded int8 ``generate`` on the
+    same params: tokens equal, the teacher-forced logits of every step
+    equal, B5's launches equal; device ms per decode step of each,
+    timed in both orders."""
+    b, t0 = GEN_FULL_RUN["b"], GEN_FULL_RUN["prompt_len"]
+    steps = SHARDED_GEN_STEPS
+    params = quantize_params(init_params(GEN_FULL, 0, device=DEV))
+    prompt = torch.randint(0, GEN_FULL.vocab, (b, t0),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32).to(DEV)
+    local = pm.device_put(params, pm.param_shardings(mesh, params))
+    rows = pm.device_put(prompt, pm.NamedSharding(mesh, ("dp", None)))
+    runs = {"sharded": lambda n: generate(local, GEN_FULL, rows, steps=n,
+                                          mesh=mesh),
+            "unsharded": lambda n: generate(params, GEN_FULL, prompt,
+                                            steps=n)}
+    out, launches = {}, {}
+    for label, run in runs.items():
+        da.flash_decode_attention.launches = 0
+        with no_device_waits():
+            out[label] = run(steps)
+        torch.cuda.synchronize()
+        launches[label] = da.flash_decode_attention.launches
+    # each timed first and second (A B B A), so an order effect shows
+    ms = {label: [] for label in runs}
+    for label in ("sharded", "unsharded", "unsharded", "sharded"):
+        long_ = timing.device_seconds_total(lambda: runs[label](steps))
+        short = timing.device_seconds_total(lambda: runs[label](1))
+        ms[label].append(1e3 * (long_ - short) / (steps - 1))
+    logits = {"sharded": _teacher_forced(local_params(local, GEN_FULL, mesh),
+                                         GEN_FULL, out["sharded"], t0, mesh),
+              "unsharded": _teacher_forced(params, GEN_FULL,
+                                           out["sharded"], t0)}
+    same_tokens = torch.equal(out["sharded"], out["unsharded"])
+    same_logits = _bits_equal(logits["sharded"], logits["unsharded"])
+    expect = GEN_FULL.n_layers * (steps - 1)
+    print(f"{card}: int8 generate under the (dp 1, tp 1) mesh, batch {b}, "
+          f"prompt {t0}, {steps} steps: device ms per decode step, "
+          f"sharded {ms['sharded'][0]:.3f} then unsharded "
+          f"{ms['unsharded'][0]:.3f}, unsharded {ms['unsharded'][1]:.3f} "
+          f"then sharded {ms['sharded'][1]:.3f} (PERF.md section 5: int8 "
+          f"weights 2.61-2.66 ms at the 1056-step chain's longer reads); "
+          f"tokens equal {same_tokens}, the {steps} steps' "
+          f"teacher-forced logits bit-equal {same_logits}; B5 launches "
+          f"{launches} (expected {expect} each)")
+    if not same_tokens or not same_logits:
+        raise AssertionError("sharded int8 generate differs from the "
+                             "unsharded one")
+    if set(launches.values()) != {expect}:
+        raise AssertionError(f"B5 launched {launches} times, expected "
+                             f"{expect} each")
+
+
+def sharded_engine_phase(card: str, mesh) -> None:
+    """Phase 30: the engine with its pools holding the rank's kv heads
+    and tp-sharded params at the serving cell, against the solo engine:
+    tokens identical, B4's launches the same (570)."""
+    params = init_params(FULL, 3, device=DEV)
+    rng = np.random.RandomState(4)
+    prompts = [[int(t) for t in rng.randint(0, FULL.vocab, n)]
+               for n in FULL_PROMPT_LENS]
+    local = pm.device_put(params, pm.param_shardings(mesh, params))
+    runs = {"sharded": lambda: ServingEngine(
+                local, FULL, device=DEV, mesh=mesh, **FULL_ENGINE),
+            "solo": lambda: ServingEngine(params, FULL, device=DEV,
+                                          **FULL_ENGINE)}
+    got, launches = {}, {}
+    for label, make in runs.items():
+        eng = make()
+        if label == "sharded":
+            pool = tuple(eng.pool_ks[0].shape)
+        pa.paged_decode_attention.launches = 0
+        got[label] = eng.run(prompts, FULL_NEW_TOKENS)
+        torch.cuda.synchronize()
+        launches[label] = pa.paged_decode_attention.launches
+    n_tok = sum(len(o) for o in got["sharded"].values())
+    dev_s = timing.device_seconds_total(
+        lambda: runs["sharded"]().run(prompts, FULL_NEW_TOKENS))
+    expect = (FULL_NEW_TOKENS - 1) * FULL.n_layers
+    print(f"{card}: the kv-head-sharded engine (tp 1: pools {pool}), "
+          f"{len(prompts)} prompts x {FULL_NEW_TOKENS} new tokens: "
+          f"{n_tok / dev_s:.1f} tokens/s by device time; tokens identical "
+          f"to the solo engine's {got['sharded'] == got['solo']}; B4 "
+          f"launches {launches} (expected {expect} each)")
+    if got["sharded"] != got["solo"]:
+        raise AssertionError("the kv-head-sharded engine's tokens differ "
+                             "from the solo engine's")
+    if set(launches.values()) != {expect}:
+        raise AssertionError(f"B4 launched {launches} times, expected "
+                             f"{expect} each")
+
+
+def _sharded_seq2seq_check(card: str, mesh) -> None:
+    t0 = time.perf_counter()
+    params = s2s.init_seq2seq_params(FULL_S2S, 0, device=DEV)
+    b, ts, tt_ = FULL_S2S_BATCH
+    gen = torch.Generator().manual_seed(2)
+    src = torch.randint(1, FULL_S2S.vocab, (b, ts), generator=gen,
+                        dtype=torch.int32).to(DEV)
+    tgt = torch.randint(1, FULL_S2S.vocab, (b, tt_), generator=gen,
+                        dtype=torch.int32).to(DEV)
+    local = pm.device_put(params, s2s.seq2seq_param_shardings(mesh, params))
+    rows = pm.NamedSharding(mesh, ("dp", None))
+    with torch.no_grad():
+        want = s2s.seq2seq_loss_fn(params, (src, tgt), FULL_S2S,
+                                   attn_fn=fa.flash_attention)
+        got = s2s.seq2seq_loss_fn(local, (pm.device_put(src, rows),
+                                          pm.device_put(tgt, rows)),
+                                  FULL_S2S, attn_fn=fa.flash_attention,
+                                  mesh=mesh)
+    same = _bits_equal(got, want)
+    print(f"{card}: the sharded seq2seq loss at the full-width seq2seq "
+          f"configuration (seq2seq_param_shardings, dp 1 tp 1): "
+          f"{got.item()!r} against the unsharded {want.item()!r}, "
+          f"bit-equal {same}; {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("the sharded seq2seq loss differs from the "
+                             "unsharded one")
+    del params, local
+    torch.cuda.empty_cache()
+
+
+def _reshard_checkpoint_check(card: str, mesh) -> None:
+    """Phase 27's dense cell (ZeRO-1 shardings, ring attention) after one
+    step, saved from the mesh, restored onto the mesh and onto the card
+    alone (both bit-equal), and one step from the mesh-restored state
+    bit-identical to the continuation."""
+    opt = tt.default_optimizer()
+    params = init_params(FULL_TRAIN, 0, device=DEV)
+    ring = pr.make_ring_attention(mesh, axis_name="sp", batch_axes=("dp",),
+                                  head_axis="tp")
+    step, init = tt.make_train_step(FULL_TRAIN, optimizer=opt, attn_fn=ring)
+    p_shard = pm.param_shardings(mesh, params)
+    z_shard = pm.zero1_opt_shardings(mesh, params, opt)
+    s_params = pm.device_put(params, p_shard)
+    del params
+    s_opt = init(s_params, z_shard)
+    batch = tuple(pm.device_put(x, pm.batch_sharding(mesh))
+                  for x in _train_batch(FULL_TRAIN))
+    # two steps: the warm-up's first rate is 0, its second is not
+    for _ in range(2):
+        step(s_params, s_opt, batch)
+    state = {"params": s_params, "opt": s_opt}
+    shardings = {"params": p_shard}
+    tensors = _state_tensors(state)
+    n_bytes = sum(t.numel() * t.element_size() for _, t in tensors)
+    ck_dir = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state(ck_dir, 2, state, shardings=shardings)
+        save_s = time.perf_counter() - t0
+        abstract = abstract_like(state, shardings=shardings)
+        back, seconds = {}, {}
+        for label, skel in (("mesh", abstract),
+                            ("card alone", on_one_device(abstract, DEV))):
+            t0 = time.perf_counter()
+            back[label] = restore_train_state(ck_dir, skel)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    print(f"{card}: the sharded dense cell's state (ZeRO-1 layout, "
+          f"{len(tensors)} tensors, {n_bytes / 1e9:.3f} GB) saved from the "
+          f"mesh in {save_s:.2f} s; restored onto the mesh in "
+          f"{seconds['mesh']:.2f} s, onto the card alone in "
+          f"{seconds['card alone']:.2f} s")
+    for label, got in back.items():
+        got_t = dict(_state_tensors(got))
+        bad = [name for name, t in tensors
+               if name not in got_t or not _bits_equal(t.cpu(),
+                                                       got_t[name].cpu())]
+        print(f"  restored onto the {label}: {len(tensors) - len(bad)} of "
+              f"{len(tensors)} tensors bit-equal; optimizer layout "
+              f"{'kept' if got['opt'].layout is not None else 'none'}")
+        if bad or (got["opt"].layout is None) != (label != "mesh"):
+            raise AssertionError(f"checkpoint restored onto the {label} "
+                                 f"differs in {bad[:5]}")
+    restored = back.pop("mesh")
+    del back
+    _, _, loss_cont = step(s_params, s_opt, batch)
+    _, _, loss_res = step(restored["params"], restored["opt"], batch)
+    same = [_bits_equal(a, c) for a, c in zip(
+        tt._param_leaves(s_params), tt._param_leaves(restored["params"]))]
+    print(f"  one step on: continuation loss {loss_cont.item()!r}, resumed "
+          f"{loss_res.item()!r}; parameters bit-equal {sum(same)} of "
+          f"{len(same)}")
+    if loss_cont.item() != loss_res.item() or not all(same):
+        raise AssertionError("the step resumed from the mesh-restored "
+                             "state differs from the continuation")
+    del state, restored, s_params, s_opt
+    torch.cuda.empty_cache()
+
+
+def _sharded_prefetch_check(card: str, mesh) -> None:
+    batches, sums = _prefetch_source(SHARDED_PREFETCH_BATCHES)
+    got = [x.double().sum() for x in data.prefetch_to_device(
+        iter(batches), sharding=pm.batch_sharding(mesh))]
+    got = torch.stack(got).cpu().tolist()
+    print(f"{card}: prefetch_to_device with sharding=batch_sharding(mesh) "
+          f"(dp 1), {len(batches)} batches: device sums equal to the "
+          f"host's {got == sums}")
+    if got != sums:
+        raise AssertionError("sharded prefetch read other values than the "
+                             "host's")
+
+
+def sharded_state_phase(card: str, mesh) -> None:
+    """Phase 31: the sharded seq2seq loss, the reshard round trip,
+    sharded prefetch and the dryrun."""
+    _sharded_seq2seq_check(card, mesh)
+    _reshard_checkpoint_check(card, mesh)
+    _sharded_prefetch_check(card, mesh)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1, device=DEV)
+    print(f"{card}: dryrun_multichip(1) over NCCL in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 HALF = "--half"
 READINGS = "chip_smoke readings: "
 
@@ -4022,8 +4429,38 @@ def third_half(smi: str) -> dict:
     return {"ring": ring}
 
 
+def fourth_half(smi: str) -> dict:
+    """Phases 28-31: the pipeline and the sharded inference and state
+    callers at world size 1 (an NCCL group of one rank): the GPipe step,
+    int8 generate under the (dp, tp) mesh, the kv-head-sharded engine,
+    the sharded seq2seq loss, the reshard checkpoint, sharded prefetch
+    and the dryrun. Their launches are printed here; the kernels' rows
+    are the earlier phases'."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        phase("the GPipe train step at full width, pp = 1")
+        pipeline_phase(smi)
+        mesh = pm.build_mesh(device_type=MESH_DEVICE)
+
+        phase("int8 generate under the (dp, tp) mesh, full width")
+        sharded_generation_phase(smi, mesh)
+
+        phase("the kv-head-sharded engine, full width")
+        sharded_engine_phase(smi, mesh)
+
+        phase("the sharded seq2seq loss, the reshard checkpoint, sharded "
+              "prefetch and the dryrun")
+        sharded_state_phase(smi, mesh)
+    finally:
+        dist.destroy_process_group()
+    return {}
+
+
 def _run_half(which: str) -> dict:
-    """Runs phases ``which`` ("1": 3-20, "2": 21-24, "3": 25-27) in a
+    """Runs phases ``which`` ("1": 3-20, "2": 21-24, "3": 25-27, "4":
+    28-31) in a
     new process of this script, its output passed through; returns its
     readings, or raises when it failed."""
     proc = subprocess.Popen(
@@ -4053,7 +4490,7 @@ def _half_main(which: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = _card(quiet=True)
     readings = {"1": first_half, "2": second_half,
-                "3": third_half}[which](smi)
+                "3": third_half, "4": fourth_half}[which](smi)
     print(READINGS + json.dumps(readings), flush=True)
     return 0
 
@@ -4092,6 +4529,7 @@ def main() -> int:
     first = _run_half("1")
     second = _run_half("2")
     third = _run_half("3")
+    _run_half("4")
 
     rows = [_kernel_row("paged_decode_attention", "paged_attention.cu",
                         "tpu_dra_driver/workloads/ops/paged_attention.py:112",

@@ -39,7 +39,10 @@ NEW_MODULES = ("workloads/data.py", "workloads/utils/checkpoint.py",
                "workloads/utils/profiling.py", "workloads/ops/collectives.py",
                "workloads/parallel/__init__.py", "workloads/parallel/mesh.py",
                "workloads/parallel/ringattention.py",
-               "workloads/parallel/spmd.py", "workloads/parallel/launch.py")
+               "workloads/parallel/spmd.py", "workloads/parallel/launch.py",
+               "workloads/parallel/pipeline.py",
+               "computedomain/__init__.py", "computedomain/multislice.py",
+               "entry.py")
 
 
 def _port_files():
@@ -95,6 +98,8 @@ def test_default_device_entry_points_raise_without_cuda():
         convert.params_from_jax({"embed": params["embed"].numpy()})
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(1)
     s2s_cfg = seq2seq.Seq2SeqConfig(vocab=16, d_model=8, n_heads=2,
                                     n_enc_layers=1, n_dec_layers=1, d_ff=16,
                                     max_src=8, max_tgt=8,

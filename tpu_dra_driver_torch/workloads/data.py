@@ -16,8 +16,11 @@ arguments and results:
   pinned memory and sent by a ``non_blocking`` copy on a CUDA stream of
   the producer's own, so the copy overlaps the consumer's kernels; the
   consumer's stream waits on an event recorded after the copy before it
-  touches the batch. The reference's ``sharding`` is ``device`` here:
-  sharded placement belongs to the multi-GPU tier.
+  touches the batch. Where the reference takes ``sharding`` for one
+  device, the port takes ``device``; with ``sharding`` (a
+  ``parallel.mesh.NamedSharding``) each leaf lands as
+  ``mesh.device_put`` places it: this rank's slice, on this rank's
+  device.
 """
 
 from __future__ import annotations
@@ -182,10 +185,13 @@ class _SideStreamPut:
     """The default ``put`` on the card: each host leaf is copied into
     pinned memory, then sent by a ``non_blocking`` copy on a stream this
     object creates in the producer thread (the current device and stream
-    are per thread, so the producer sets both itself)."""
+    are per thread, so the producer sets both itself). ``select``, where
+    given, takes each leaf's part first (a sharding's slice)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 select: Callable[[torch.Tensor], torch.Tensor] = None):
         self.device = device
+        self.select = select
         self.stream: Optional[torch.cuda.Stream] = None
 
     def __call__(self, batch) -> _Staged:
@@ -195,6 +201,8 @@ class _SideStreamPut:
 
         def leaf(x):
             x = torch.as_tensor(x)
+            if self.select is not None:
+                x = self.select(x)
             if x.device.type == "cpu":
                 x = x.pin_memory()
             return x.to(self.device, non_blocking=True)
@@ -210,10 +218,26 @@ class _SideStreamPut:
 PRODUCER_THREAD = "prefetch_to_device"
 
 
+def _shard_put(sharding) -> Callable[[Any], Any]:
+    """The ``put`` of a ``sharding``: each leaf's slice on this rank, a
+    fresh contiguous copy (``parallel.mesh.device_put``), on the mesh's
+    device (the current card, by the producer's stream, or the CPU)."""
+    from tpu_dra_driver_torch.workloads.parallel.mesh import device_put
+
+    def select(x):
+        return device_put(x, sharding)
+
+    if sharding.mesh.device_type == "cuda":
+        return _SideStreamPut(torch.device("cuda",
+                                           torch.cuda.current_device()),
+                              select)
+    return lambda b: _tree_map(lambda x: select(torch.as_tensor(x)), b)
+
+
 def prefetch_to_device(batches: Iterable[Any], size: int = 2,
                        device="cuda",
-                       put: Optional[Callable[[Any], Any]] = None
-                       ) -> Iterator[Any]:
+                       put: Optional[Callable[[Any], Any]] = None,
+                       sharding=None) -> Iterator[Any]:
     """Iterate ``batches`` with up to ``size`` of them already on
     ``device``.
 
@@ -221,10 +245,13 @@ def prefetch_to_device(batches: Iterable[Any], size: int = 2,
     (trees of NumPy arrays or tensors) and places each leaf. On the card
     the copies run on the producer's own stream from pinned memory, and
     the consumer's current stream waits for them when the batch is
-    handed over; with ``device="cpu"`` each leaf becomes a CPU tensor. A
-    custom ``put`` owns placement and is applied as it is; passing one
-    together with a ``device`` other than the default raises, as the
-    reference refuses ``put`` with ``sharding``. An exception in the
+    handed over; with ``device="cpu"`` each leaf becomes a CPU tensor.
+    With ``sharding`` (a ``parallel.mesh.NamedSharding``; every rank
+    iterates the same host batches) each leaf lands as ``device_put``
+    places it: this rank's slice, copied the same way onto the mesh's
+    device (``device`` is not read). A custom ``put`` owns placement and
+    is applied as it is; passing one together with ``sharding``, or with
+    a ``device`` other than the default, raises. An exception in the
     source (or in ``put``) reaches the consumer at the batch that
     failed. A consumer that leaves the loop (break, ``close()``,
     ``GeneratorExit``) releases the producer and the buffered batches,
@@ -234,10 +261,15 @@ def prefetch_to_device(batches: Iterable[Any], size: int = 2,
     """
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}")
+    if put is not None and sharding is not None:
+        raise ValueError("pass either sharding or a custom put, not both "
+                         "(a custom put owns placement)")
     if put is not None and torch.device(device) != torch.device("cuda"):
         raise ValueError("pass either device or a custom put, not both "
                          "(a custom put owns placement)")
-    if put is None:
+    if sharding is not None:
+        put = _shard_put(sharding)
+    elif put is None:
         dev = resolve_device(device)
         if dev.type == "cuda":
             if dev.index is None:

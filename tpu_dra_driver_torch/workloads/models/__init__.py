@@ -4,9 +4,8 @@ LoRA adapters, the masked-LM encoder, the encoder-decoder family,
 KV-cache generation, beam search, speculative decoding and the
 continuous-batching engine, with their throughput benchmarks.
 
-The names are those the reference's ``models`` exports, less
-``seq2seq_param_shardings``, which waits for the port's multi-GPU tier
-(and ``quantize``, a module name here)."""
+The names are those the reference's ``models`` exports (less
+``quantize``, a module name here)."""
 
 from tpu_dra_driver_torch.workloads.models.quantize import (  # noqa: F401
     QTensor,
@@ -76,4 +75,5 @@ from tpu_dra_driver_torch.workloads.models.seq2seq import (  # noqa: F401
     init_seq2seq_params,
     make_seq2seq_train_step,
     seq2seq_loss_fn,
+    seq2seq_param_shardings,
 )

@@ -20,18 +20,30 @@ The g = 1 decode read goes through ``flash_decode_attention`` (kernel B5
 on the card) where the cache length has a KV_BLOCK-multiple divisor;
 the reference keeps it on the masked einsum, which reads the whole
 cache where B5 reads only the written slots (see :func:`wide_step`).
+
+Under a (dp, tp) mesh (``mesh=``, where the reference reads the mesh off
+its arrays' shardings) the params are this rank's shards as
+``parallel.param_shardings`` places them, float or int8, and the prompt
+its ``dp`` rows. The rank runs its ``tp`` share of the heads (their
+columns of ``wqkv`` gathered once per call, :class:`Local`), its cache
+holds their ``n_kv / tp`` KV heads, which B5 reads; the outputs of
+``wo`` and ``w_down`` and the vocab-parallel embedding are summed over
+``tp`` and the logits joined over ``tp`` before the pick. Every
+collective over an axis of size 1 is skipped, so on a mesh of one rank
+the steps run the unsharded operations.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from tpu_dra_driver_torch.workloads import resolve_device
 from tpu_dra_driver_torch.workloads.models.quantize import (
-    embed_lookup, lm_head, mm, param_bytes, quantize_params,
+    QTensor, embed_lookup, lm_head, mm, param_bytes, quantize_params,
 )
 from tpu_dra_driver_torch.workloads.models.transformer import (
     ModelConfig,
@@ -53,15 +65,89 @@ from tpu_dra_driver_torch.workloads.utils.timing import (
 )
 
 
+@dataclass(frozen=True)
+class Local:
+    """This rank's params as the sharded steps read them, made once per
+    call by :func:`local_params`, and the mesh layout (``spmd``, None
+    unsharded). The steps take one in place of ``params``."""
+
+    params: Params
+    spmd: object = None
+
+
+def local_params(params, cfg: ModelConfig, mesh=None) -> Local:
+    """``params`` (this rank's shards under ``mesh``, or the whole tree
+    without one) as the steps read them: each int8 weight's scales
+    narrowed to its codes' block (``parallel.local_scales``), each
+    layer's ``wqkv`` reduced to the columns of this rank's heads (its
+    ``tp`` blocks gathered, once), the learned positions gathered whole.
+    A :class:`Local` is returned as it is."""
+    if isinstance(params, Local):
+        return params
+    if mesh is None:
+        return Local(params)
+    from tpu_dra_driver_torch.workloads.parallel.mesh import local_scales
+    from tpu_dra_driver_torch.workloads.parallel.spmd import Spmd, all_gather
+    spmd = Spmd(mesh)
+    n_kv = cfg.n_kv_heads or cfg.n_heads
+    spmd.local_heads(cfg.n_heads, n_kv)
+    kv_d = cfg.d_model // cfg.n_heads * n_kv
+    out = dict(unstack_layer_params(local_scales(params, mesh)))
+    if "pos_embed" in out:
+        out["pos_embed"] = all_gather(out["pos_embed"], mesh, "tp", 0)
+
+    def columns(w):
+        def cols(x):
+            return spmd.qkv_columns(x, cfg.d_model, kv_d)
+        if isinstance(w, QTensor):
+            return QTensor(q=cols(w.q), s=cols(w.s), axis=w.axis)
+        return cols(w)
+
+    out["layers"] = [dict(layer, wqkv=columns(layer["wqkv"]))
+                     for layer in out["layers"]]
+    return Local(out, spmd)
+
+
+def _heads(cfg: ModelConfig, spmd) -> Tuple[int, int, int]:
+    """(query heads, KV heads, head dim) that this rank runs."""
+    n_kv = cfg.n_kv_heads or cfg.n_heads
+    if spmd is not None:
+        return spmd.local_heads(cfg.n_heads, n_kv) + (
+            cfg.d_model // cfg.n_heads,)
+    return cfg.n_heads, n_kv, cfg.d_model // cfg.n_heads
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig, spmd
+           ) -> torch.Tensor:
+    if spmd is None:
+        return embed_lookup(params["embed"], tokens, cfg.dtype)
+    return spmd.embed(params["embed"], tokens, cfg.dtype)
+
+
+def _tp_sum(x: torch.Tensor, spmd) -> torch.Tensor:
+    """A row-parallel product's partial sums summed over ``tp``."""
+    return x if spmd is None else spmd.psum(x, ("tp",))
+
+
+def _logits(x: torch.Tensor, embed, spmd) -> torch.Tensor:
+    """The tied head's f32 logits over the whole vocabulary."""
+    logits = lm_head(x, embed)
+    return logits if spmd is None else spmd.vocab_logits(logits)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_t: int,
-                  device="cuda") -> Dict:
+                  device="cuda", mesh=None) -> Dict:
     """Zeroed per-layer KV cache [batch, h_kv, L, hd]. With cfg.window >
     0 the cache is a ring of length min(max_t, window); otherwise L is
     max_t rounded up to a KV_BLOCK multiple. With cfg.kv_int8 the K/V
     tensors hold int8 codes and the cache gains ``k_s``/``v_s`` fp32
-    per-vector scales [batch, h_kv, L]."""
+    per-vector scales [batch, h_kv, L]. Under ``mesh`` it holds this
+    rank's ``h_kv / tp`` heads."""
     dev = resolve_device(device)
     n_kv = cfg.n_kv_heads or cfg.n_heads
+    if mesh is not None:
+        from tpu_dra_driver_torch.workloads.parallel.spmd import Spmd
+        n_kv = Spmd(mesh).local_heads(cfg.n_heads, n_kv)[1]
     hd = cfg.d_model // cfg.n_heads
     if cfg.window > 0:
         length = min(max_t, cfg.window)
@@ -145,13 +231,13 @@ def _decode_attention(q, k_cache, v_cache, pos, k_scale=None,
 
 def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
                   tokens: torch.Tensor, attn_fn=None,
-                  prefix_lm: bool = False, last_index=None):
+                  prefix_lm: bool = False, last_index=None, mesh=None):
     """Fill the KV cache from a whole [b, t0] prompt in one forward and
     return (logits [b, vocab] at the last position, cache, t0).
     ``prefix_lm=True`` makes the prompt bidirectional. ``last_index``
     (causal only) reads the logits at that position instead of the last:
     a prompt right-padded to a bucket reads them at its real last
-    token."""
+    token. ``mesh``: see the module's docstring."""
     if last_index is not None and prefix_lm:
         raise ValueError("last_index requires causal prefill (prefix_lm "
                          "treats the padded length as the prefix)")
@@ -159,14 +245,14 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
         raise ValueError("block_prefill requires cfg.window == 0 "
                          "(ring caches fill sequentially)")
     b, t0 = tokens.shape
-    params = unstack_layer_params(params)
-    n_kv = cfg.n_kv_heads or cfg.n_heads
-    hd = cfg.d_model // cfg.n_heads
+    local = local_params(params, cfg, mesh)
+    params, spmd = unstack_layer_params(local.params), local.spmd
+    n_heads, n_kv, hd = _heads(cfg, spmd)
     kv_d = hd * n_kv
     attn = attn_fn or attention_reference
     kw = {"prefix": t0} if prefix_lm else {}
 
-    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    x = _embed(params, tokens, cfg, spmd)
     if not cfg.use_rope:
         x = x + params["pos_embed"][:t0]
 
@@ -174,8 +260,8 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
     for li, layer in enumerate(params["layers"]):
         xn = _rmsnorm(x, layer["ln1"]["g"])
         qkv = mm(xn, layer["wqkv"])
-        q, k, v = qkv.split([cfg.d_model, kv_d, kv_d], dim=-1)
-        q = q.reshape(b, t0, cfg.n_heads, hd).transpose(1, 2)
+        q, k, v = qkv.split([hd * n_heads, kv_d, kv_d], dim=-1)
+        q = q.reshape(b, t0, n_heads, hd).transpose(1, 2)
         k = k.reshape(b, t0, n_kv, hd).transpose(1, 2)
         v = v.reshape(b, t0, n_kv, hd).transpose(1, 2)
         if cfg.use_rope:
@@ -190,9 +276,9 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
             new_vs.append(v_s)
         # the prefill block attends its own exact fp K/V
         att = attn(q, k, v, True, **kw)
-        att = att.transpose(1, 2).reshape(b, t0, cfg.d_model)
-        x = x + mm(att, layer["wo"])
-        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg)
+        att = att.transpose(1, 2).reshape(b, t0, hd * n_heads)
+        x = x + _tp_sum(mm(att, layer["wo"]), spmd)
+        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg, spmd)
 
     if last_index is None:
         x = x[:, -1:]
@@ -200,7 +286,7 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
         li_ = int(last_index)
         x = x[:, li_:li_ + 1]
     x = _rmsnorm(x, params["final_norm"]["g"])
-    logits = lm_head(x, params["embed"])[:, 0]
+    logits = _logits(x, params["embed"], spmd)[:, 0]
     new_cache = {"k": new_k, "v": new_v}
     if new_ks:
         new_cache["k_s"] = new_ks
@@ -209,12 +295,13 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
 
 
 def chunked_prefill(params: Params, cfg: ModelConfig, cache: Dict,
-                    tokens: torch.Tensor, chunk: int):
+                    tokens: torch.Tensor, chunk: int, mesh=None):
     """Fill the cache from a [b, t0] prompt in t0/chunk wide steps of
     :func:`wide_step` (row i of a chunk at base p sees slots <= p + i),
     bounding the attention transient at O(chunk * L). Full-length cache
     and causal model only. Returns (last-position logits [b, vocab],
     cache, t0)."""
+    params = local_params(params, cfg, mesh)
     b, t0 = tokens.shape
     if cfg.window > 0:
         raise ValueError("chunked_prefill requires cfg.window == 0 "
@@ -231,7 +318,7 @@ def chunked_prefill(params: Params, cfg: ModelConfig, cache: Dict,
 
 
 def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
-              pos, toks: torch.Tensor):
+              pos, toks: torch.Tensor, mesh=None):
     """Multi-token decode step: ``toks`` [b, g] at positions [pos, pos+g)
     → (logits [b, g, vocab], cache), the cache written in place. ``pos``
     is an int or a 0-d int32 tensor on the cache's device, which no part
@@ -247,7 +334,8 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
     ``min(pos + 1, L)`` written slots (kernel B5 on the card); g > 1,
     and rings whose window has no such divisor, take the masked read
     :func:`_decode_attention`. Both compute the same function. The
-    reference takes the masked read for every g."""
+    reference takes the masked read for every g. ``mesh``: see the
+    module's docstring (``params`` may be a :class:`Local`)."""
     b, g = toks.shape
     if g > 1 and cfg.window > 0:
         raise ValueError("wide_step with g > 1 requires cfg.window == 0 "
@@ -257,12 +345,13 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
         raise ValueError(
             f"cache length {length} exceeds max_seq "
             f"{cfg.max_seq} (learned pos_embed bounds positions)")
-    n_kv = cfg.n_kv_heads or cfg.n_heads
-    hd = cfg.d_model // cfg.n_heads
+    local = local_params(params, cfg, mesh)
+    params, spmd = local.params, local.spmd
+    n_heads, n_kv, hd = _heads(cfg, spmd)
     kv_d = hd * n_kv
     flash = g == 1 and decode_block_t(length) > 0
 
-    x = embed_lookup(params["embed"], toks, cfg.dtype)           # [b,g,d]
+    x = _embed(params, toks, cfg, spmd)                          # [b,g,d]
     if not cfg.use_rope:
         rows = pos + torch.arange(g, device=x.device)
         x = x + params["pos_embed"].index_select(0, rows)[None]
@@ -279,8 +368,8 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
     for li, layer in enumerate(params["layers"]):
         xn = _rmsnorm(x, layer["ln1"]["g"])
         qkv = mm(xn, layer["wqkv"])                          # [b,g,d+2kv_d]
-        q, k, v = qkv.split([cfg.d_model, kv_d, kv_d], dim=-1)
-        q = q.reshape(b, g, cfg.n_heads, hd).transpose(1, 2)
+        q, k, v = qkv.split([hd * n_heads, kv_d, kv_d], dim=-1)
+        q = q.reshape(b, g, n_heads, hd).transpose(1, 2)
         k = k.reshape(b, g, n_kv, hd).transpose(1, 2)
         v = v.reshape(b, g, n_kv, hd).transpose(1, 2)
         if cfg.use_rope:
@@ -298,12 +387,12 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
                                          pos, k_s, v_s)
         else:
             att = _decode_attention(q, k_cache, v_cache, pos, k_s, v_s)
-        att = att.transpose(1, 2).reshape(b, g, cfg.d_model)
-        x = x + mm(att, layer["wo"])
-        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg)
+        att = att.transpose(1, 2).reshape(b, g, hd * n_heads)
+        x = x + _tp_sum(mm(att, layer["wo"]), spmd)
+        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg, spmd)
 
     x = _rmsnorm(x, params["final_norm"]["g"])
-    logits = lm_head(x, params["embed"])                     # [b, g, vocab]
+    logits = _logits(x, params["embed"], spmd)               # [b, g, vocab]
     new_cache = {"k": new_k, "v": new_v}
     if new_ks:
         new_cache["k_s"] = new_ks
@@ -312,11 +401,12 @@ def wide_step(params: Params, cfg: ModelConfig, cache: Dict,
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
-                pos, token: torch.Tensor):
+                pos, token: torch.Tensor, mesh=None):
     """One token step: token [b] at position ``pos`` (an int or a 0-d
     int32 tensor) → (logits [b, vocab], cache). The g = 1 case of
     :func:`wide_step`."""
-    logits, cache = wide_step(params, cfg, cache, pos, token[:, None])
+    logits, cache = wide_step(params, cfg, cache, pos, token[:, None],
+                              mesh)
     return logits[:, 0], cache
 
 
@@ -386,7 +476,8 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
              temperature: float = 0.0, top_k: int = 0,
              generator: Optional[torch.Generator] = None,
              prefix_lm: Optional[bool] = None,
-             prefill_chunk: Optional[int] = None) -> torch.Tensor:
+             prefill_chunk: Optional[int] = None,
+             mesh=None) -> torch.Tensor:
     """Generation: prompt [b, t0] → [b, t0 + steps], on the prompt's
     device (the params must be there too).
 
@@ -407,7 +498,13 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
     (and the ring prefill) is :func:`_step_body` run once per step by a
     :class:`StepGraph`: replays of one CUDA graph on the card, the body
     itself on the CPU. The position, the fed-back token and the output
-    stay on the prompt's device, and the host never waits for it."""
+    stay on the prompt's device, and the host never waits for it.
+
+    Under ``mesh`` (a (dp, tp) mesh; see the module's docstring) the
+    params are this rank's shards, the prompt and the output its ``dp``
+    rows, and every ``tp`` rank picks the same tokens from the joined
+    logits; sampling draws each rank's rows from its own ``generator``,
+    which the ``tp`` ranks of a row must hold in the same state."""
     if steps <= 0:
         return prompt
     if temperature < 0:
@@ -442,7 +539,8 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
                              f"into chunks of {prefill_chunk}")
     temperature = float(temperature)
     dev = prompt.device
-    cache = init_kv_cache(cfg, b, max_t, device=dev)
+    params = local_params(params, cfg, mesh)
+    cache = init_kv_cache(cfg, b, max_t, device=dev, mesh=mesh)
     out = torch.empty((b, t0 + steps), dtype=prompt.dtype, device=dev)
     out[:, :t0] = prompt
     pos = torch.zeros((), dtype=torch.int32, device=dev)

@@ -46,6 +46,24 @@ def quantize(w: torch.Tensor, axis: int = -2) -> QTensor:
     return QTensor(q=q, s=s, axis=axis - w.ndim)
 
 
+def block_scales(w: QTensor, dim: int, index: int, n: int) -> QTensor:
+    """``w`` whose codes are block ``index`` of ``n`` along ``dim`` of a
+    larger weight and whose scales are still the whole weight's (as a
+    sharding that splits the codes by the weight's rule and replicates
+    the scales leaves them), with the scales narrowed to the codes'
+    block. A block along the quantized axis keeps every scale: each
+    scale covers the whole contraction, and the rank's partial product
+    takes it as the whole product does."""
+    ndim = w.q.dim()
+    dim, axis = dim % ndim, w.axis % ndim
+    if n == 1 or dim == axis:
+        return w
+    sdim = dim if dim < axis else dim - 1
+    size = w.s.shape[sdim] // n
+    return QTensor(q=w.q, s=w.s.narrow(sdim, index * size, size),
+                   axis=w.axis)
+
+
 # weight names quantized over the matmul contraction axis (-2); the MoE
 # router stays fp (tiny, and its rounding flips discrete expert choices)
 _MATMUL_KEYS = ("wqkv", "wo", "w_up", "w_down", "moe_up", "moe_down")

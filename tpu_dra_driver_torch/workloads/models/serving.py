@@ -17,6 +17,14 @@ and finished requests free their blocks.
   body itself on the CPU: tables, lens, tokens and the chunk's output
   live in static device buffers, copied in once and out once per chunk.
 
+Under a (dp, tp) mesh (``mesh=``) the params are this rank's ``tp``
+shards as ``parallel.param_shardings`` places them and the pools hold
+its ``n_kv / tp`` KV heads (``[n_blocks, n_kv / tp, block_t, hd]``, as
+``P(None, "tp", None, None)`` places the reference's); kernel B4 reads
+those heads, the row-parallel products and the embedding are summed
+over ``tp`` and the logits joined before the argmax, so every rank
+runs the same requests and picks the same tokens as one device.
+
 The pools are updated in place (the reference donates them to each jit
 call instead), so a call that fails part-way leaves them in an unknown
 state: any exception raised by the device work of ``add``, ``step`` or
@@ -35,11 +43,10 @@ import torch
 
 from tpu_dra_driver_torch.workloads import resolve_device
 from tpu_dra_driver_torch.workloads.models.generate import (
-    block_prefill, generate, init_kv_cache,
+    _embed, _heads, _logits, _tp_sum, block_prefill, generate,
+    init_kv_cache, local_params,
 )
-from tpu_dra_driver_torch.workloads.models.quantize import (
-    embed_lookup, lm_head, mm,
-)
+from tpu_dra_driver_torch.workloads.models.quantize import mm
 from tpu_dra_driver_torch.workloads.models.transformer import (
     ModelConfig,
     Params,
@@ -61,17 +68,20 @@ from tpu_dra_driver_torch.workloads.utils.timing import (
 
 
 def _decode_core(params, cfg: ModelConfig, pool_ks, pool_vs,
-                 tables, lens, tokens, n_live_blocks=None):
+                 tables, lens, tokens, n_live_blocks=None, mesh=None):
     """One decode step for every row: tokens [B] at per-row positions
     ``lens`` → (logits [B, vocab] fp32, pool_ks, pool_vs), the pools
     appended in place. Rows whose table row is 0 (inactive) write into
-    the null block and their logits are garbage the host ignores."""
+    the null block and their logits are garbage the host ignores.
+    ``params`` may be a ``generate.Local``; ``mesh``: see the module's
+    docstring."""
     b = tokens.shape[0]
-    n_kv = cfg.n_kv_heads or cfg.n_heads
-    hd = cfg.d_model // cfg.n_heads
+    local = local_params(params, cfg, mesh)
+    params, spmd = local.params, local.spmd
+    n_heads, n_kv, hd = _heads(cfg, spmd)
     kv_d = hd * n_kv
 
-    x = embed_lookup(params["embed"], tokens, cfg.dtype)[:, None]  # [B,1,d]
+    x = _embed(params, tokens, cfg, spmd)[:, None]                 # [B,1,d]
     if not cfg.use_rope:
         # caller contract: lens < max_seq; an index past the table raises
         # rather than reusing a clamped row
@@ -81,8 +91,8 @@ def _decode_core(params, cfg: ModelConfig, pool_ks, pool_vs,
     for li, layer in enumerate(params["layers"]):
         xn = _rmsnorm(x, layer["ln1"]["g"])
         qkv = mm(xn, layer["wqkv"])
-        q, k, v = qkv.split([cfg.d_model, kv_d, kv_d], dim=-1)
-        q = q.reshape(b, 1, cfg.n_heads, hd).transpose(1, 2)
+        q, k, v = qkv.split([hd * n_heads, kv_d, kv_d], dim=-1)
+        q = q.reshape(b, 1, n_heads, hd).transpose(1, 2)
         k = k.reshape(b, 1, n_kv, hd).transpose(1, 2)
         v = v.reshape(b, 1, n_kv, hd).transpose(1, 2)
         if cfg.use_rope:
@@ -93,27 +103,27 @@ def _decode_core(params, cfg: ModelConfig, pool_ks, pool_vs,
         att = paged_decode_attention(q.contiguous(), pool_ks[li],
                                      pool_vs[li], tables, lens + 1,
                                      n_live_blocks=n_live_blocks)
-        att = att.transpose(1, 2).reshape(b, 1, cfg.d_model)
-        x = x + mm(att, layer["wo"])
-        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg)
+        att = att.transpose(1, 2).reshape(b, 1, hd * n_heads)
+        x = x + _tp_sum(mm(att, layer["wo"]), spmd)
+        x = x + _ffn(_rmsnorm(x, layer["ln2"]["g"]), layer, cfg, spmd)
 
     x = _rmsnorm(x, params["final_norm"]["g"])
-    logits = lm_head(x, params["embed"])[:, 0]
+    logits = _logits(x, params["embed"], spmd)[:, 0]
     return logits, pool_ks, pool_vs
 
 
 @torch.no_grad()
 def paged_decode_step(params, cfg: ModelConfig, pool_ks, pool_vs,
-                      tables, lens, tokens, n_live_blocks=None):
+                      tables, lens, tokens, n_live_blocks=None, mesh=None):
     """Single-step entry point (pools appended in place)."""
     return _decode_core(params, cfg, pool_ks, pool_vs, tables, lens,
-                        tokens, n_live_blocks=n_live_blocks)
+                        tokens, n_live_blocks=n_live_blocks, mesh=mesh)
 
 
 @torch.no_grad()
 def paged_decode_steps(params, cfg: ModelConfig, pool_ks, pool_vs,
                        tables, lens, tokens, n_steps: int,
-                       n_live_blocks=None):
+                       n_live_blocks=None, mesh=None):
     """``n_steps`` greedy decode steps: each step's argmax is fed back as
     the next token without leaving the device. Returns (tokens [B,
     n_steps] int32 on the device, pool_ks, pool_vs); the caller copies
@@ -121,6 +131,7 @@ def paged_decode_steps(params, cfg: ModelConfig, pool_ks, pool_vs,
     no active row appends past its block allocation."""
     out = []
     toks = tokens
+    params = local_params(params, cfg, mesh)
     for _ in range(n_steps):
         logits, pool_ks, pool_vs = _decode_core(
             params, cfg, pool_ks, pool_vs, tables, lens, toks,
@@ -133,7 +144,8 @@ def paged_decode_steps(params, cfg: ModelConfig, pool_ks, pool_vs,
 
 @torch.no_grad()
 def _admit_prefill(params, tokens, pool_ks, pool_vs, blocks,
-                   cfg: ModelConfig, block_t: int, true_len=None):
+                   cfg: ModelConfig, block_t: int, true_len=None,
+                   mesh=None):
     """Admission: dense prompt prefill through ``block_prefill``, then
     each layer's K/V written into the allocated pool blocks (in place).
     Returns (last_logits [1, vocab], pool_ks, pool_vs).
@@ -143,10 +155,15 @@ def _admit_prefill(params, tokens, pool_ks, pool_vs, blocks,
     token (causality shields it from the right-padding). The padded
     tail's K/V land past the written blocks, in slots that lens hides
     and the next appends overwrite, or in the null block (padded table
-    entries are 0), which nothing reads."""
+    entries are 0), which nothing reads.
+    ``params`` may be a ``generate.Local``; ``mesh``: see the module's
+    docstring."""
     t0 = tokens.shape[1]
     nb = blocks.shape[0]
-    cache = init_kv_cache(cfg, 1, t0, device=tokens.device)
+    params = local_params(params, cfg, mesh)
+    cache = init_kv_cache(
+        cfg, 1, t0, device=tokens.device,
+        mesh=None if params.spmd is None else params.spmd.mesh)
     last_logits, cache, _ = block_prefill(
         params, cfg, cache, tokens,
         last_index=None if true_len is None else int(true_len) - 1)
@@ -182,7 +199,7 @@ class ServingEngine:
 
     def __init__(self, params: Params, cfg: ModelConfig, n_blocks: int,
                  block_t: int = 128, max_batch: int = 8,
-                 max_blocks_per_seq: int = 32, device="cuda"):
+                 max_blocks_per_seq: int = 32, device="cuda", mesh=None):
         if cfg.window > 0 or cfg.prefix > 0:
             raise ValueError("ServingEngine supports causal full-cache "
                              "models (window == 0, prefix == 0)")
@@ -192,9 +209,11 @@ class ServingEngine:
                              "generate() — use int8 weights instead")
         self.device = resolve_device(device)
         self.params, self.cfg = params, cfg
+        # what the steps read: under a mesh, the rank's heads' columns
+        # gathered once here
+        self._local = local_params(params, cfg, mesh)
         self.block_t = block_t
-        n_kv = cfg.n_kv_heads or cfg.n_heads
-        hd = cfg.d_model // cfg.n_heads
+        _, n_kv, hd = _heads(cfg, self._local.spmd)
         self.pool_ks, self.pool_vs = [], []
         for _ in range(cfg.n_layers):
             pk, pv = init_pool(n_blocks, block_t, n_kv, hd, cfg.dtype,
@@ -282,7 +301,7 @@ class ServingEngine:
             padded_blocks = np.asarray(
                 blocks[:n_prompt] + [0] * (nb_bucket - n_prompt), np.int32)
             last_logits, self.pool_ks, self.pool_vs = _admit_prefill(
-                self.params, self._to_device(toks), self.pool_ks,
+                self._local, self._to_device(toks), self.pool_ks,
                 self.pool_vs, self._to_device(padded_blocks), self.cfg,
                 self.block_t, true_len=t0)
             first = int(torch.argmax(last_logits))
@@ -315,7 +334,7 @@ class ServingEngine:
         and ``_col`` by one, all in place."""
         # the body holds the engine's tensors, not the engine: a graph
         # kept in the engine must not keep the engine alive in a cycle
-        params, cfg, pool_ks, pool_vs = (self.params, self.cfg,
+        params, cfg, pool_ks, pool_vs = (self._local, self.cfg,
                                          self.pool_ks, self.pool_vs)
         d, out, col = self._dev, self._out, self._col
 

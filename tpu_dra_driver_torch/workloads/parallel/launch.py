@@ -1,10 +1,11 @@
 """Run a function on every rank of a new process group.
 
-The multi-rank half of the port runs as one process per rank. On the
-CPU (``gloo``) :func:`run_group` starts them: each child joins the group
-through a :class:`torch.distributed.FileStore` in ``store_dir``, so two
-groups never contend for a port, runs ``fn(rank, *args)`` with one
-thread, and leaves its result in ``store_dir``; the parent waits at most
+The multi-rank half of the port runs as one process per rank, on the
+CPU (``gloo``) or one card a rank (``nccl``, rank r on card r).
+:func:`run_group` starts them: each child joins the group through a
+:class:`torch.distributed.FileStore` in ``store_dir``, so two groups
+never contend for a port, runs ``fn(rank, *args)`` with one thread, and
+leaves its result in ``store_dir``; the parent waits at most
 ``timeout`` seconds, kills the group when it expires, and raises when
 any rank failed or hung.
 """
@@ -26,6 +27,8 @@ def _child(rank: int, world: int, backend: str, store_dir: str,
     torch.set_num_threads(1)
     out = os.path.join(store_dir, f"rank{rank}.pt")
     try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
         dist.init_process_group(
             backend, store=dist.FileStore(os.path.join(store_dir, "store"),
                                           world),

@@ -224,6 +224,34 @@ def param_shardings(mesh, params):
         mesh, _param_spec(path, x.dim(), stacked, ep_ax)))
 
 
+def local_scales(params, mesh):
+    """This rank's shards of a quantized params tree (as
+    :func:`device_put` places them by :func:`param_shardings`: each
+    ``QTensor``'s codes split by its weight's rule, its scales whole)
+    with each ``QTensor``'s scales narrowed to its codes' block
+    (:func:`..models.quantize.block_scales`), the layout that a rank's
+    products read: a column-parallel ``wqkv`` or ``w_up`` multiplies its
+    columns by their own scales, a row-parallel ``wo`` or ``w_down``
+    keeps every scale, the vocab-parallel ``embed`` its rows'."""
+    from tpu_dra_driver_torch.workloads.models.quantize import block_scales
+    specs = dict(_tree_paths(param_shardings(mesh, params)))
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, f"{prefix}/{i}" if prefix else str(i))
+                    for i, v in enumerate(node)]
+        if isinstance(node, QTensor):
+            for dim, axis in enumerate(specs[f"{prefix}/q"].spec):
+                node = block_scales(node, dim, axis_index(mesh, axis),
+                                    axis_size(mesh, axis))
+        return node
+
+    return walk(params)
+
+
 def _zero1_augment(spec: tuple, shape, dp: int) -> tuple:
     """``spec`` with ``dp`` on the first still-unsharded, dp-divisible
     dim of ``shape`` (unchanged when dp is 1 or no dim qualifies)."""

@@ -8,7 +8,12 @@ collective:
 
 - :func:`psum` (all-reduce forward, all-reduce backward),
 - :func:`all_gather` (all-gather forward, reduce-scatter backward),
-- :func:`all_to_all` (the tiled ``lax.all_to_all`` and its inverse).
+- :func:`all_to_all` (the tiled ``lax.all_to_all`` and its inverse),
+- :func:`shift_open` (the pipeline's open-ended ``lax.ppermute`` hop,
+  rank i to i + 1, and its transpose, rank i to i - 1; without grad:
+  the pipeline's schedule posts both itself),
+- :func:`masked_psum` (the pipeline's collect: one rank's buffer
+  replicated over an axis).
 
 With exact transposes the step differentiates the sum, over every rank,
 of the rank's loss; every rank computes the same global loss, so the
@@ -149,6 +154,40 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all_nograd(g, *ctx.args), None, None, None
 
 
+def shift_open(x: torch.Tensor, mesh, axis: str, direction: int
+               ) -> torch.Tensor:
+    """``lax.ppermute(x, axis, [(i, i + 1) for i in range(n - 1)])``
+    (``direction`` +1), or its transpose (-1: rank i's ``x`` to rank
+    i - 1), without grad: the rank at the open end receives zeros. Every
+    rank posts one send and one receive (the send from the far end goes
+    round to the open end and is dropped there), so every rank posts the
+    same collective in the same order on every call. Over an axis of
+    size 1 the one rank is both ends: it receives zeros, and nothing is
+    sent."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return torch.zeros_like(x)
+    y, = _shift_nograd([x], mesh.get_group(axis), direction)
+    end = 0 if direction > 0 else n - 1
+    return y.zero_() if axis_index(mesh, axis) == end else y
+
+
+class _MaskedPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep, group):
+        ctx.keep, ctx.group = keep, group
+        y = x.clone(memory_format=torch.contiguous_format) if keep \
+            else torch.zeros_like(x, memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return (g if ctx.keep else torch.zeros_like(g)), None, None
+
+
 def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """``lax.psum`` over ``axes``, differentiable (axes of size 1 are
     skipped)."""
@@ -174,6 +213,18 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
     if axis_size(mesh, axis) == 1:
         return x
     return _AllToAll.apply(x, mesh.get_group(axis), split_axis, concat_axis)
+
+
+def masked_psum(x: torch.Tensor, keep: bool, mesh, axis: str
+                ) -> torch.Tensor:
+    """``psum(where(keep, x, 0), axis)``, differentiable: the buffer of
+    the ranks whose ``keep`` is True (the pipeline's last stage), summed
+    and so replicated over ``axis``. Its transpose gives those ranks the
+    summed cotangent and the others zeros, so every rank's backward
+    reaches ``x`` (and runs whatever produced it)."""
+    if axis_size(mesh, axis) == 1:
+        return x if keep else torch.zeros_like(x)
+    return _MaskedPsum.apply(x, keep, mesh.get_group(axis))
 
 
 # ------------------------------------------------- the model's questions
@@ -216,19 +267,31 @@ class Spmd:
 
     # embedding, positions and the loss --------------------------------
 
-    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+    def embed(self, table, tokens: torch.Tensor, dtype=None
               ) -> torch.Tensor:
-        """Rows of the vocab-sharded table: each rank looks up the tokens
-        its rows hold (zeros elsewhere) and the partial rows are summed
-        over ``tp``."""
+        """Rows of the vocab-sharded table (a tensor, or a row-quantized
+        ``QTensor`` whose scales are its rows' own, ``dtype`` as
+        ``embed_lookup`` takes it): each rank looks up the tokens its
+        rows hold (zeros elsewhere) and the partial rows are summed over
+        ``tp``."""
+        from tpu_dra_driver_torch.workloads.models.quantize import (
+            embed_lookup,
+        )
         if self.size("tp") == 1:
-            return table[tokens]
-        v_local = table.shape[0]
+            return embed_lookup(table, tokens, dtype)
+        v_local = getattr(table, "q", table).shape[0]
         local = tokens.long() - self.index("tp") * v_local
         held = (local >= 0) & (local < v_local)
-        rows = table[local.clamp(0, v_local - 1)]
+        rows = embed_lookup(table, local.clamp(0, v_local - 1), dtype)
         rows = rows * held[..., None].to(rows.dtype)
         return self.psum(rows, ("tp",))
+
+    def vocab_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary's logits from this rank's ``tp`` shard of
+        them (its rows of the tied table), joined in rank order on the
+        last dim, so a greedy pick's tie goes to the lower index as on
+        one device."""
+        return all_gather(logits, self.mesh, "tp", logits.dim() - 1)
 
     def pos_rows(self, pos_embed: torch.Tensor, t_local: int
                  ) -> torch.Tensor:
@@ -302,15 +365,24 @@ class Spmd:
         weight's contiguous ``tp`` block is not head-aligned (its columns
         are q, then k, then v), so the blocks are gathered and this
         rank's q, k and v columns taken from the whole."""
+        return self.head_columns(wqkv, (d, kv_d, kv_d))
+
+    def head_columns(self, w, parts: Sequence[int]):
+        """This rank's columns of a fused column-parallel projection
+        whose columns are ``parts`` (widths, each split over ``tp`` by
+        heads): the ``tp`` blocks gathered, then this rank's block of
+        each part taken from the whole."""
         tp = self.size("tp")
         if tp == 1:
-            return wqkv
-        full = all_gather(wqkv, self.mesh, "tp", wqkv.dim() - 1)
+            return w
+        full = all_gather(w, self.mesh, "tp", w.dim() - 1)
         r = self.index("tp")
-        qd, kd = d // tp, kv_d // tp
-        return torch.cat([full[..., r * qd:(r + 1) * qd]] + [
-            full[..., start + r * kd:start + (r + 1) * kd]
-            for start in (d, d + kv_d)], dim=-1)
+        cols, start = [], 0
+        for width in parts:
+            n = width // tp
+            cols.append(full[..., start + r * n:start + (r + 1) * n])
+            start += width
+        return torch.cat(cols, dim=-1)
 
     def local_heads(self, n_heads: int, n_kv: int) -> Tuple[int, int]:
         tp = self.size("tp")
