@@ -6,8 +6,9 @@ mixture-of-experts, Adafactor, LoRA, masked-LM encoder, encoder-decoder,
 beam-search and speculative-decoding paths, the input pipeline,
 checkpoints, profiling, the single-device benchmarks, the sharded
 training tier, the GPipe pipeline and the sharded inference and state
-callers (at world size 1), on one CUDA card and checks them; imports no
-JAX. Phases, each of which fails the run when it fails:
+callers (at world size 1), and the paths at head dim 256, on one CUDA
+card and checks them; imports no JAX. Phases, each of which fails the
+run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
 2. build: the CUDA kernels from the sources in the checkout, one nvcc
@@ -64,8 +65,9 @@ JAX. Phases, each of which fails the run when it fails:
    captured step under sync-debug mode), the device ms per step, the
    idle share and the capture time, beside the eager loop's figures;
    B5's launches counted per replay over one long-chain call; the long
-   chain by replays against the same chain by the eager step (tokens
-   equal, or parting at a near-tie); then 32 decode steps under
+   chain by replays against the same chain by the eager step, in bf16
+   over all its steps and with int8 over its first EAGER_CHECK_STEPS
+   (tokens equal, or parting at a near-tie); then 32 decode steps under
    ``torch.profiler``, eager and as replays, whose device-busy times
    must agree with each other and with the long chain's;
 10. training parity: a small GQA/RoPE config in fp32, three
@@ -97,8 +99,8 @@ JAX. Phases, each of which fails the run when it fails:
 15. MoE generation: the generation configuration with 8 experts, top-2
    (Mixtral 8x7B's routing), bf16; the 32- and 1056-step chains as
    replays (wall rate, idle share, capture time, B5 launches), the long
-   chain's device time, and the long chain by the eager step (tokens
-   equal, or parting at a near-tie);
+   chain's device time, and the long chain's first EAGER_CHECK_STEPS
+   steps by the eager step (tokens equal, or parting at a near-tie);
 16. MoE training: the training configuration with the same routing and
    capacity factor 1.25, Adafactor, from the generation phase's params;
    one untimed and three timed steps (B1-B3 launches counted, model
@@ -213,11 +215,27 @@ JAX. Phases, each of which fails the run when it fails:
    unsharded one; phase 27's dense state saved from the mesh and
    restored onto the mesh and onto the card alone (bit-equal, the
    resumed step bit-identical; GB and seconds); ``prefetch_to_device``
-   with ``sharding``; ``dryrun_multichip(1)`` over NCCL.
+   with ``sharding``; ``dryrun_multichip(1)`` over NCCL;
+32. head dim 256 (``HD256``: Gemma-2B's attention, 8 query heads over 1
+   KV head of 256, at the training cell's widths): B1-B3's ``<256>``
+   kernels over the mask forms in f32 and bf16 (and at head dims 160
+   and 192), then at q [8, 8, 2048, 256], k/v [8, 1, 2048, 256] causal
+   as in phase 4 (a tile left out shown to break the allowance); B5 (its
+   FMA kernel) in bf16, int8 and f32 at cache [8, 1, 3200, 256], pos
+   2048, and B4 at phase 3's serving lens with h_kv 1, hd 256, each
+   against its plain version, timed with its bound and SDPA; d = 272
+   refused with ``ValueError`` by all five wrappers; three HD256 train
+   steps (48/24/24 B1-B3 launches, finite falling losses, the step split
+   by kernel group); ``generate`` at b 8, prompt 2048, 32 new tokens by
+   replays against the eager loop, B5 launches and device ms per step;
+   the serving run of phase 7 on HD256 weights (its tokens, decode step
+   against the CPU, chunk against the eager step), device tokens/s. The
+   build phase asserts that the three ``<256>`` instantiations do not
+   spill.
 
-Phases 1-2 run in the script's own process, phases 3-20, 21-24, 25-27
-and 28-31 in four processes of the script that it starts one after the
-other (see ``HALF``). It then prints one ``{"kernels": [...]}`` line, the card's
+Phases 1-2 run in the script's own process, phases 3-20, 21-24, 25-27,
+28-31 and 32 in five processes of the script that it starts one after
+the other (see ``HALF``). It then prints one ``{"kernels": [...]}`` line, the card's
 name and power limit and, last, the device line ``{"ok": true,
 "device": {...}}``. Without a CUDA card it exits
 non-zero and prints no result.
@@ -232,6 +250,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -462,6 +481,12 @@ DEVICE_STEP_RATIO = (0.9, 1.15)
 EAGER_LOOP = "8.5-14.0 ms/step wall, 1.434-1.436 ms/step device, 83-90% idle"
 # decode steps of the engine replayed against the eager step
 ENGINE_GRAPH_STEPS = 8
+# the replayed long chain is held against the eager loop over all its
+# steps in bf16, and over its first EAGER_CHECK_STEPS steps for the int8
+# variants and MoE generation: each eager step is issued from the host
+# (12-19 ms), and the cut keeps the whole script within its time with
+# phase 32 added
+EAGER_CHECK_STEPS = 256
 # name -> (kv_int8, int8 weights)
 GEN_FULL_VARIANTS = {"bf16": (False, False),
                      "int8 weights + int8 KV": (True, True),
@@ -617,8 +642,12 @@ MOE_RANGE, BLOCK_RANGE, OPT_RANGE = "smoke:moe", "smoke:block", "smoke:opt"
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "wgmma")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Announces a phase, with the seconds since this process started."""
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 @contextlib.contextmanager
@@ -653,13 +682,14 @@ def time_ms(fn, iters: int = 50,
     return total / iters
 
 
-def paged_inputs(dtype, gen, block_t=128, lens=PAGED_LENS, n_live=8):
-    """b=8, h=8, h_kv=4, hd=128 decode reads through a block table: by
-    default the full-width serving shapes (block_t 128, 64 pool blocks,
-    32 table columns of which 8 are walked). Each row's live blocks sit
-    at shuffled physical ids; table entries past a row's live range are
-    not valid block ids."""
-    b, h, h_kv, hd = 8, 8, 4, 128
+def paged_inputs(dtype, gen, block_t=128, lens=PAGED_LENS, n_live=8,
+                 h_kv=4, hd=128):
+    """b=8, h=8 decode reads through a block table: by default the
+    full-width serving shapes (h_kv 4, hd 128, block_t 128, 64 pool
+    blocks, 32 table columns of which 8 are walked). Each row's live
+    blocks sit at shuffled physical ids; table entries past a row's live
+    range are not valid block ids."""
+    b, h = 8, 8
     need = sum(-(-n // block_t) for n in lens) + 1
     n_blocks = max(64, need)
     max_blocks = max(32, n_live + 2)
@@ -799,8 +829,17 @@ def kernel_phase(gen) -> dict:
             err = _paged_check(f"{name} (block_t {block_t}, lens {lens}, "
                                f"{n_live} blocks walked)", inputs)
             result[str(dtype)] = max(result[str(dtype)], err)
-    # timings at the serving dtype and shapes
-    q, pk, pv, table, lens, n_live = paged_inputs(torch.bfloat16, gen)
+    return {"max_abs_err": result[str(torch.bfloat16)],
+            "max_abs_err_f32": result[str(torch.float32)],
+            **_paged_readings(gen, flush)}
+
+
+def _paged_readings(gen, flush, **shape) -> dict:
+    """B4 timed at the serving dtype and shapes (``shape``: the KV heads
+    and head dim of ``paged_inputs``) with a cold L2, against its plain
+    version, SDPA over the gathered caches and its bound."""
+    q, pk, pv, table, lens, n_live = paged_inputs(torch.bfloat16, gen,
+                                                  **shape)
     b, h, _, hd = q.shape
     h_kv, block_t = pk.shape[1], pk.shape[2]
     rep = h // h_kv
@@ -846,9 +885,7 @@ def kernel_phase(gen) -> dict:
           f"kernel| {lib_err:.2e}); bound {bound_ms:.4f} ms ({n_bytes} "
           f"bytes, {n_flops} flops); kernel at {100 * bound_ms / ms:.1f}% "
           f"of bound")
-    return {"max_abs_err": result[str(torch.bfloat16)],
-            "max_abs_err_f32": result[str(torch.float32)],
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -887,17 +924,21 @@ def small_engine_phase() -> None:
         raise AssertionError(f"card and CPU tokens differ: {outs}")
 
 
-def full_width_phase(card: str) -> dict:
+def full_width_phase(card: str, cfg: ModelConfig = FULL) -> dict:
+    """The serving cell's run through ``ServingEngine`` (by default at the
+    serving configuration ``FULL``; phase 32 passes ``HD256_GEN``): B4's
+    launches, its tokens against the warm-up run's, one decode step
+    against the CPU and the replayed chunk against the eager step."""
     t0 = time.perf_counter()
-    params = init_params(FULL, 3, device=DEV)
+    params = init_params(cfg, 3, device=DEV)
     n_params = tt.param_count(params)
     rng = np.random.RandomState(4)
-    prompts = [[int(t) for t in rng.randint(0, FULL.vocab, n)]
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab, n)]
                for n in FULL_PROMPT_LENS]
     print(f"{n_params / 1e6:.1f}M params in {time.perf_counter() - t0:.1f} s")
-    warm = ServingEngine(params, FULL, device=DEV, **FULL_ENGINE).run(
+    warm = ServingEngine(params, cfg, device=DEV, **FULL_ENGINE).run(
         prompts, FULL_NEW_TOKENS)           # first-call set-up, untimed
-    eng = ServingEngine(params, FULL, device=DEV, **FULL_ENGINE)
+    eng = ServingEngine(params, cfg, device=DEV, **FULL_ENGINE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.paged_decode_attention.launches = 0
@@ -918,9 +959,9 @@ def full_width_phase(card: str) -> dict:
           f"tok/s without the capture; peak memory {peak / 2**20:.1f} MiB; "
           f"paged kernel launches {launches}, counted per replay; same "
           f"tokens as the warm-up run: {got == warm}")
-    expect = (FULL_NEW_TOKENS - 1) * FULL.n_layers
+    expect = (FULL_NEW_TOKENS - 1) * cfg.n_layers
     if len(outs) != len(prompts) or any(
-            len(o) != FULL_NEW_TOKENS or not all(0 <= t < FULL.vocab
+            len(o) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab
                                                  for t in o) for o in outs):
         raise AssertionError("full-width run produced malformed outputs")
     if got != warm or captures < 1:
@@ -932,7 +973,7 @@ def full_width_phase(card: str) -> dict:
 
     # one decode step on the card against the same step on the CPU from
     # identical pools (the CPU takes the kernel's plain version)
-    eng = ServingEngine(params, FULL, device=DEV, **FULL_ENGINE)
+    eng = ServingEngine(params, cfg, device=DEV, **FULL_ENGINE)
     for p in prompts:
         eng.add(p, FULL_NEW_TOKENS)
     tokens = np.zeros((FULL_ENGINE["max_batch"],), np.int32)
@@ -943,12 +984,12 @@ def full_width_phase(card: str) -> dict:
             torch.from_numpy(eng.lens), torch.from_numpy(tokens))
     n_live = eng._live_blocks_bucket(1)
     card_logits, _, _ = paged_decode_step(
-        params, FULL, [p.clone() for p in args[0]],
+        params, cfg, [p.clone() for p in args[0]],
         [p.clone() for p in args[1]], *(a.to(DEV) for a in args[2:]),
         n_live_blocks=n_live)
     cpu_params = _on(params, "cpu")
     cpu_logits, _, _ = paged_decode_step(
-        cpu_params, FULL, [p.cpu() for p in args[0]],
+        cpu_params, cfg, [p.cpu() for p in args[0]],
         [p.cpu() for p in args[1]], *args[2:], n_live_blocks=n_live)
     active = [r.row for r in eng.rows if r is not None]
     a, c = card_logits.float().cpu()[active], cpu_logits.float()[active]
@@ -958,12 +999,12 @@ def full_width_phase(card: str) -> dict:
           f"cpu| / max |cpu| {rel:.3e} (tolerance {TOL_FULL_WIDTH_REL:.0e})")
     if not finite or not rel <= TOL_FULL_WIDTH_REL:
         raise AssertionError("full-width card and CPU decode steps disagree")
-    _engine_graph_check(eng, params, tokens)
+    _engine_graph_check(eng, params, tokens, cfg)
     return {"launches": launches, "tokens_per_s_wall": n_tok / wall,
             "peak_mib": peak / 2**20, "wall_ms": 1e3 * wall}
 
 
-def _engine_graph_check(eng, params, tokens) -> None:
+def _engine_graph_check(eng, params, tokens, cfg) -> None:
     """The engine's decode chunk (an eager warm-up step, then replays of
     its captured step) against ``paged_decode_step`` run eagerly with
     the argmax fed back, from identical pools: the same tokens (or a
@@ -980,7 +1021,7 @@ def _engine_graph_check(eng, params, tokens) -> None:
     toks = torch.tensor(tokens, device=DEV)
     eager, logits = [], []
     for _ in range(k):
-        lg, pk, pv = paged_decode_step(params, FULL, pk, pv, tables, lens,
+        lg, pk, pv = paged_decode_step(params, cfg, pk, pv, tables, lens,
                                        toks, n_live_blocks=n_live)
         toks = lg.argmax(-1).to(torch.int32)
         eager.append(toks)
@@ -1389,19 +1430,25 @@ def _flash_rows(q, k, pairs, err, ms, plain_ms, library_ms,
     return result
 
 
+def _flash_f32_case(name, shape, mask, gen) -> None:
+    """One f32 mask case: out, lse, dq, dk and dv within TOL_FLASH_F32 of
+    the plain versions, empty-band rows exact."""
+    q, k, v, dout, g_lse = _flash_inputs(shape, torch.float32, gen)
+    pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
+    errs = _errors(pairs)
+    print(f"f32 {name} {shape} {mask}: " + ", ".join(
+        f"{o} {e:.2e}" for o, (e, _) in errs.items()))
+    for o, (e, top) in errs.items():
+        if not e <= TOL_FLASH_F32 * max(1.0, top):
+            raise AssertionError(f"flash {o} disagrees in f32 case "
+                                 f"{name}: {e} (largest {top})")
+    _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
+
+
 def flash_phase(gen) -> dict:
     # every mask form, f32
     for name, (shape, mask) in FLASH_CASES.items():
-        q, k, v, dout, g_lse = _flash_inputs(shape, torch.float32, gen)
-        pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
-        errs = _errors(pairs)
-        print(f"f32 {name} {shape} {mask}: " + ", ".join(
-            f"{o} {e:.2e}" for o, (e, _) in errs.items()))
-        for o, (e, top) in errs.items():
-            if not e <= TOL_FLASH_F32 * max(1.0, top):
-                raise AssertionError(f"flash {o} disagrees in f32 case "
-                                     f"{name}: {e} (largest {top})")
-        _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
+        _flash_f32_case(name, shape, mask, gen)
 
     # every mask form, bf16
     for name, (shape, mask) in FLASH_BF16_CASES.items():
@@ -1641,9 +1688,20 @@ def decode_kernel_phase(gen) -> dict:
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=DEV)
     pos = DECODE_BF16_POS[0]
+    out = _decode_readings(gen, flush, pos, DECODE_FULL)
+    _decode_profile(gen, flush, pos)
+    del flush
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), **out["bf16"]}
+
+
+def _decode_readings(gen, flush, pos, shape) -> dict:
+    """{"bf16", "int8": B5 at ``shape`` and ``pos`` timed with a cold L2
+    against its plain version, SDPA over the live slots (bf16 only) and
+    its bound}."""
     out = {}
     for label, int8 in (("bf16", False), ("int8", True)):
-        q, k, v, ks, vs = _decode_inputs(DECODE_FULL, torch.bfloat16, gen,
+        q, k, v, ks, vs = _decode_inputs(shape, torch.bfloat16, gen,
                                          int8=int8)
         ms = time_ms(lambda: da.flash_decode_attention(q, k, v, pos, ks, vs),
                      flush=flush)
@@ -1674,10 +1732,7 @@ def decode_kernel_phase(gen) -> dict:
                       "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations"}
-    _decode_profile(gen, flush, pos)
-    del flush
-    torch.cuda.empty_cache()
-    return {"max_abs_err": max(errs), **out["bf16"]}
+    return out
 
 
 def serving_throughput_phase(card: str, run_ms: float) -> None:
@@ -1912,9 +1967,10 @@ def full_width_generation_phase(card: str) -> int:
         idle = 1.0 - dev_step * long_ / walls[long_]
         out = outs[long_]
         expect = cfg.n_layers * (long_ - 1)
+        n_eager = long_ if name == "bf16" else EAGER_CHECK_STEPS
         eager, eager_wall, eager_logits = _eager_chain(params, cfg, prompt,
-                                                       long_, t0 + long_)
-        parts = _partings(out[:, t0:].cpu(), eager[:, t0:].cpu(),
+                                                       n_eager, t0 + long_)
+        parts = _partings(out[:, t0:t0 + n_eager].cpu(), eager[:, t0:].cpu(),
                           eager_logits)
         del eager_logits
         print(f"{card}, {name}: {r['decode_tokens_per_sec']:.1f} tokens/s by "
@@ -1929,9 +1985,9 @@ def full_width_generation_phase(card: str) -> int:
               f"params {r['param_mib']:.1f} MiB; peak memory "
               f"{peak / 2**30:.2f} GiB; B5 launches {launches}, counted per "
               f"replay (expected {expect}); {time.perf_counter() - t_start:.1f} s")
-        print(f"  the same long chain by the eager step, issued from the host: "
-              f"{eager_wall:.3f} s wall, {1e3 * eager_wall / long_:.3f} "
-              f"ms/step, prefill included; the eager loop's figures "
+        print(f"  the long chain's first {n_eager} steps by the eager step, "
+              f"issued from the host: {eager_wall:.3f} s wall, "
+              f"{1e3 * eager_wall / n_eager:.3f} ms/step, prefill included; the eager loop's figures "
               f"(PERF.md): {EAGER_LOOP}; replayed tokens equal to the eager ones: "
               f"{not parts}"
               + "".join(f"; row {r_} parts at step {j} ({sl:.2e} of the "
@@ -2518,8 +2574,9 @@ def full_width_lora_phase(card: str) -> None:
 def full_width_moe_generation_phase(card: str):
     """The generation cell with 8 experts, top-2, bf16: the short and
     long chains as replays (wall rate, idle share, capture time, B5
-    launches), the long chain's device time, and the long chain by the
-    eager step (tokens equal, or parting at a near-tie). Returns the
+    launches), the long chain's device time, and the long chain's first
+    EAGER_CHECK_STEPS steps by the eager step (tokens equal, or parting
+    at a near-tie). Returns the
     params, which the MoE training phase reuses."""
     cfg = FULL_MOE_GEN
     run = GEN_FULL_RUN
@@ -2555,9 +2612,11 @@ def full_width_moe_generation_phase(card: str):
         long_)
     out = outs[long_]
     expect = cfg.n_layers * (long_ - 1)
+    n_eager = EAGER_CHECK_STEPS
     eager, eager_wall, eager_logits = _eager_chain(params, cfg, prompt,
-                                                   long_, max_t)
-    parts = _partings(out[:, t0:].cpu(), eager[:, t0:].cpu(), eager_logits)
+                                                   n_eager, max_t)
+    parts = _partings(out[:, t0:t0 + n_eager].cpu(), eager[:, t0:].cpu(),
+                      eager_logits)
     del eager_logits
     if dev_step is None:
         device = "device time not measured (the profiler saw no kernel)"
@@ -2573,8 +2632,9 @@ def full_width_moe_generation_phase(card: str):
           f"ms per call, apart from the steps; peak memory "
           f"{peak / 2**30:.2f} GiB; B5 launches {launches} per call, counted "
           f"per replay (expected {expect})")
-    print(f"  the same long chain by the eager step: {eager_wall:.3f} s wall, "
-          f"{1e3 * eager_wall / long_:.3f} ms/step, prefill included; "
+    print(f"  the long chain's first {n_eager} steps by the eager step: "
+          f"{eager_wall:.3f} s wall, {1e3 * eager_wall / n_eager:.3f} "
+          f"ms/step, prefill included; "
           f"replayed tokens equal to the eager ones: {not parts}"
           + "".join(f"; row {r_} parts at step {j} ({sl:.2e} of the largest "
                     f"|logit| below the eager top)" for r_, j, sl in parts))
@@ -4313,6 +4373,247 @@ def sharded_state_phase(card: str, mesh) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------- phase 32 (fifth half)
+
+# Head dim 256: Gemma-2B's attention geometry (google/gemma-2b's
+# config.json: 8 query heads, 1 KV head, head_dim 256) at the training
+# cell's widths (vocab 8192, d_model 2048, d_ff 8192, 8 layers, RoPE,
+# bf16). h * d is 2048 as in the training cell, so its attention does the
+# same operations and B1-B3's bounds are the same.
+HD256 = replace(FULL_TRAIN, n_heads=8, n_kv_heads=1)
+# ... for generation and serving: the generation cell's cache length
+HD256_GEN = replace(GEN_FULL, n_heads=8, n_kv_heads=1)
+# generate at b 8, prompt 2048: chains of 8 and 32 new tokens (the wall
+# per step is marginal between them), the long one against the eager loop
+HD256_GEN_RUN = dict(b=8, prompt_len=2048, gen_short=8, gen_long=32)
+# B1-B3 at one attention call of HD256's training step
+FLASH_HD256 = (8, 8, 1, 2048, 2048, 256)
+# the mask forms of phase 4 at head dim 256, and head dims 160 and 192,
+# which run the <256> instantiations with the columns past d zero-filled;
+# bf16 row by row against the f32 reference, f32 against the plain
+# versions
+FLASH_BF16_CASES_HD256 = {
+    "causal_d256": ((2, 4, 2, 256, 256, 256), {}),
+    "causal_gqa_8to1_d256": ((1, 8, 1, 256, 256, 256), {}),
+    "window_d256": ((1, 4, 2, 256, 256, 256), dict(window=48)),
+    "window_row_offset_empty_rows_d256": ((1, 2, 1, 128, 128, 256),
+                                          dict(window=32, row_offset=64)),
+    "noncausal_tkv_ne_t_d256": ((1, 4, 2, 128, 320, 256),
+                                dict(causal=False)),
+    "causal_ragged_192_d256": ((1, 4, 1, 192, 192, 256), {}),
+    "causal_d160": ((1, 4, 2, 256, 256, 160), {}),
+    "window_d192": ((1, 4, 2, 256, 256, 192), dict(window=48)),
+}
+FLASH_CASES_HD256 = {
+    "causal_gqa_4to1_d256": ((1, 4, 1, 256, 256, 256), {}),
+    "window_row_offset_empty_rows_d256": ((1, 2, 1, 128, 128, 256),
+                                          dict(window=32, row_offset=64)),
+}
+# B5 at the HD256 generation read: (b, h, h_kv, L, hd), pos 2048; bf16
+# queries above hd 128 take the FMA kernel
+DECODE_HD256 = (8, 8, 1, 3200, 256)
+# one past every kernel's largest head dim: each wrapper must refuse it
+REFUSED_HEAD_DIM = 272
+
+
+def _refusal_probe() -> None:
+    """d = REFUSED_HEAD_DIM on the card: each wrapper raises ValueError
+    naming it, and launches nothing."""
+    d = REFUSED_HEAD_DIM
+    x = torch.zeros((1, 1, 128, d), dtype=torch.bfloat16, device=DEV)
+    row = torch.zeros((1, 1, 128), dtype=torch.float32, device=DEV)
+    q1 = torch.zeros((1, 1, 1, d), dtype=torch.bfloat16, device=DEV)
+    pool = torch.zeros((2, 1, 16, d), dtype=torch.bfloat16, device=DEV)
+    table = torch.ones((1, 2), dtype=torch.int32, device=DEV)
+    lens = torch.ones((1,), dtype=torch.int32, device=DEV)
+    calls = {
+        fa.flash_forward: lambda: fa.flash_forward(x, x, x),
+        fa.flash_backward_dq: lambda: fa.flash_backward_dq(x, x, x, x, row,
+                                                           row),
+        fa.flash_backward_dkv: lambda: fa.flash_backward_dkv(x, x, x, x, row,
+                                                             row),
+        pa.paged_decode_attention: lambda: pa.paged_decode_attention(
+            q1, pool, pool, table, lens, 1),
+        da.flash_decode_attention: lambda: da.flash_decode_attention(
+            q1, x, x, 0),
+    }
+    for wrapper, call in calls.items():
+        before = wrapper.launches
+        try:
+            call()
+        except ValueError as e:
+            if str(d) not in str(e) or wrapper.launches != before:
+                raise AssertionError(f"{wrapper.__name__} refused head dim "
+                                     f"{d} for another reason: {e}")
+            print(f"  {wrapper.__name__}, head dim {d}: ValueError: {e}")
+            continue
+        raise AssertionError(f"{wrapper.__name__} took head dim {d}")
+
+
+def hd256_kernel_phase(gen) -> dict:
+    """B1-B3 over the mask forms at head dim 256 (and 160, 192) in f32
+    and bf16, then at HD256's full-width training shape; B5 (bf16 and
+    int8 caches) and B4 at the HD256 reads: each held against its plain
+    version, timed, with its bound and library yardstick; d = 272 refused
+    by every wrapper."""
+    for name, (shape, mask) in FLASH_CASES_HD256.items():
+        _flash_f32_case(name, shape, mask, gen)
+    for name, (shape, mask) in FLASH_BF16_CASES_HD256.items():
+        _flash_bf16_case(name, shape, mask, gen)
+    torch.cuda.empty_cache()
+    flash = _flash_full_width(gen, {}, FLASH_HD256)
+    torch.cuda.empty_cache()
+
+    h_kv, hd = DECODE_HD256[2], DECODE_HD256[4]
+    pos = DECODE_BF16_POS[0]
+    errs = [_decode_check(f"bf16 hd {hd}", *_decode_inputs(
+                DECODE_HD256, torch.bfloat16, gen), pos),
+            _decode_check(f"int8 cache, bf16 q, hd {hd}", *_decode_inputs(
+                DECODE_HD256, torch.bfloat16, gen, int8=True), pos)]
+    _decode_check(f"f32 hd {hd}", *_decode_inputs(
+        DECODE_HD256, torch.float32, gen), pos)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=DEV)
+    decode = _decode_readings(gen, flush, pos, DECODE_HD256)
+
+    shape = dict(h_kv=h_kv, hd=hd)
+    paged_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        paged_err[dtype] = _paged_check(
+            f"serving lens, h_kv {h_kv}, hd {hd}",
+            paged_inputs(dtype, gen, **shape),
+            mutant=dtype == torch.bfloat16)
+    paged = _paged_readings(gen, flush, **shape)
+    del flush
+    torch.cuda.empty_cache()
+    _refusal_probe()
+    return {"flash": flash,
+            "decode": {"max_abs_err": max(errs), **decode["bf16"]},
+            "decode_int8": {"max_abs_err": errs[1], **decode["int8"]},
+            "paged": {"max_abs_err": paged_err[torch.bfloat16], **paged}}
+
+
+def hd256_training_phase(card: str, flash: dict) -> dict:
+    """Three timed steps of HD256 (remat "dots", scan_layers, 8 x 2048,
+    ``default_optimizer()``, flash attention): ms, peak, B1-B3 launches,
+    finite falling losses; one more step split by kernel group."""
+    params = init_params(HD256, 0, device=DEV)
+    n_params = tt.param_count(params)
+    b, t = FULL_TRAIN_BATCH
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, HD256.vocab, (b, t), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    batch = (tokens, tokens)       # as the reference's training benchmark
+    step, init = tt.make_train_step(HD256, optimizer=tt.default_optimizer(),
+                                    attn_fn=fa.flash_attention)
+    state = init(params)
+    params, state, loss = step(params, state, batch)    # untimed
+    first = loss.item()
+    step_ms, losses, launches, peak = _timed_steps(
+        lambda: step(params, state, batch)[2])
+    print(f"{card}: HD256 ({n_params / 1e6:.1f}M params, {HD256.n_heads} "
+          f"heads over {HD256.n_kv_heads} KV head, head dim "
+          f"{HD256.d_model // HD256.n_heads}), {TIMED_STEPS} steps of "
+          f"{b}x{t}: {step_ms:.2f} ms/step (device events), "
+          f"{b * t / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {[first] + losses}")
+    for name, _ in FLASH_KERNELS:
+        per_step = launches[name] / TIMED_STEPS
+        share = per_step * flash[name]["ms"] / step_ms
+        print(f"  {name}: {launches[name]} launches ({per_step:g} per "
+              f"step) x {flash[name]['ms']:.3f} ms = {100 * share:.1f}% of "
+              f"the step")
+    _check_flash_launches(launches, HD256, "HD256 training")
+    _check_losses(first, losses, "HD256 training")
+    if not losses[-1] < first:
+        raise AssertionError(f"HD256 training: the loss does not fall "
+                             f"({[first] + losses})")
+    _profile_step(lambda: step(params, state, batch), step_ms)
+    return launches
+
+
+def hd256_generation_phase(card: str) -> int:
+    """``generate`` on HD256_GEN at b 8, prompt 2048: the long chain's
+    replays against the eager loop (equal tokens, or partings at near
+    ties), B5's launches per call, and its decode steps' device time by
+    kernel group. Returns B5's launches over the long-chain call."""
+    run = HD256_GEN_RUN
+    cfg = HD256_GEN
+    b, t0 = run["b"], run["prompt_len"]
+    short, long_ = run["gen_short"], run["gen_long"]
+    max_t = cfg.max_seq              # the cache of DECODE_HD256's read
+    params = init_params(cfg, 0, device=DEV)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (b, t0), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    generate(params, cfg, prompt, steps=short, max_t=max_t)   # warm-up
+    walls, outs = {}, {}
+    for n in (short, long_):
+        torch.cuda.synchronize()
+        da.flash_decode_attention.launches = 0
+        StepGraph.captures = 0
+        start = time.perf_counter()
+        with no_device_waits():
+            outs[n] = generate(params, cfg, prompt, steps=n, max_t=max_t)
+        torch.cuda.synchronize()
+        walls[n] = time.perf_counter() - start
+        launches, captures = da.flash_decode_attention.launches, \
+            StepGraph.captures
+    wall_step = (walls[long_] - walls[short]) / (long_ - short)
+    out = outs[long_]
+    expect = cfg.n_layers * (long_ - 1)
+    eager, eager_wall, eager_logits = _eager_chain(params, cfg, prompt,
+                                                   long_, max_t)
+    parts = _partings(out[:, t0:].cpu(), eager[:, t0:].cpu(), eager_logits)
+    del eager_logits
+    print(f"{card}, HD256 generate: {b} x {long_} tokens after a {t0}-token "
+          f"prompt in {walls[long_]:.3f} s wall, {1e3 * wall_step:.3f} "
+          f"ms/step (marginal between {short} and {long_} steps), under "
+          f"sync-debug mode; B5 launches {launches} (expected {expect}), "
+          f"{captures} capture(s); the eager chain {eager_wall:.3f} s; "
+          f"replayed tokens equal to the eager ones: {not parts}"
+          + "".join(f"; row {r_} parts at step {j} ({sl:.2e} of the "
+                    f"largest |logit| below the eager top)"
+                    for r_, j, sl in parts))
+    if out.shape != (b, t0 + long_) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError("HD256: malformed generation output")
+    if not torch.equal(outs[short], out[:, :t0 + short]):
+        raise AssertionError("HD256: the short chain's tokens are not a "
+                             "prefix of the long chain's")
+    if any(sl > TOL_TIE_REL for _, _, sl in parts):
+        raise AssertionError("HD256: the replayed chain parts from the "
+                             "eager one where no near-tie is")
+    if launches != expect or captures != 1:
+        raise AssertionError(f"HD256: B5 launched {launches} times per "
+                             f"generate call, expected {expect}, or "
+                             f"{captures} captures, expected 1")
+    eager_ms = _profile_decode(params, cfg, prompt, max_t, wall_step)
+    print(f"  HD256 decode step: {eager_ms:.3f} device ms (eager, "
+          f"{PROFILED_DECODE_STEPS} steps from position {t0})")
+    return launches
+
+
+def hd256_serving_phase(card: str) -> int:
+    """The serving cell's run at HD256_GEN's weights (B4 at h_kv 1, hd
+    256) with phase 7's checks, then once more under the profiler for
+    its device tokens/s and B4's share. Returns B4's launches."""
+    served = full_width_phase(card, HD256_GEN)
+    params = init_params(HD256_GEN, 3, device=DEV)
+    rng = np.random.RandomState(4)
+    prompts = [[int(t) for t in rng.randint(0, HD256_GEN.vocab, n)]
+               for n in FULL_PROMPT_LENS]
+    eng = ServingEngine(params, HD256_GEN, device=DEV, **FULL_ENGINE)
+    busy = _profile_step(lambda: eng.run(prompts, FULL_NEW_TOKENS),
+                         served["wall_ms"], SERVING_KERNEL_GROUPS,
+                         "HD256 serving run")
+    n_tok = len(FULL_PROMPT_LENS) * FULL_NEW_TOKENS
+    print(f"  HD256 serving: {n_tok} tokens, "
+          + (f"{1e3 * n_tok / busy:.1f} tokens/s by device time"
+             if busy else "device time not measured"))
+    return served["launches"]
+
+
 HALF = "--half"
 READINGS = "chip_smoke readings: "
 
@@ -4458,11 +4759,30 @@ def fourth_half(smi: str) -> dict:
     return {}
 
 
+def fifth_half(smi: str) -> dict:
+    """Phase 32: head dim 256. B1-B5 at the HD256 shapes, then HD256's
+    training steps, ``generate`` and the serving engine. Returns the
+    kernels' readings and their launches on those paths."""
+    phase("head dim 256: the five kernels at the HD256 shapes")
+    kernels = hd256_kernel_phase(torch.Generator().manual_seed(9))
+
+    phase("head dim 256: HD256 training at full width")
+    flash_launches = hd256_training_phase(smi, kernels["flash"])
+
+    phase("head dim 256: HD256 generate at full width")
+    decode_launches = hd256_generation_phase(smi)
+
+    phase("head dim 256: the HD256 serving engine at full width")
+    paged_launches = hd256_serving_phase(smi)
+    return {**kernels, "flash_launches": flash_launches,
+            "decode_launches": decode_launches,
+            "paged_launches": paged_launches}
+
+
 def _run_half(which: str) -> dict:
     """Runs phases ``which`` ("1": 3-20, "2": 21-24, "3": 25-27, "4":
-    28-31) in a
-    new process of this script, its output passed through; returns its
-    readings, or raises when it failed."""
+    28-31, "5": 32) in a new process of this script, its output passed
+    through; returns its readings, or raises when it failed."""
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), HALF, which],
         stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, text=True)
@@ -4489,8 +4809,8 @@ def _half_main(which: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = _card(quiet=True)
-    readings = {"1": first_half, "2": second_half,
-                "3": third_half, "4": fourth_half}[which](smi)
+    readings = {"1": first_half, "2": second_half, "3": third_half,
+                "4": fourth_half, "5": fifth_half}[which](smi)
     print(READINGS + json.dumps(readings), flush=True)
     return 0
 
@@ -4502,6 +4822,30 @@ def _kernel_row(name, source, replaces, launches, reading) -> dict:
             **{k: reading[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")}}
+
+
+def _spills(log: str) -> dict:
+    """{entry function: (spill store bytes, spill load bytes)} from
+    ptxas's ``-v`` report in an nvcc log."""
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and name is not None:
+            found[name] = (int(spill.group(1)), int(spill.group(2)))
+    return found
+
+
+def _check_hd256_spills(log: str) -> None:
+    """B1-B3's three <256> instantiations built, none of them spilling."""
+    hd256 = {n: s for n, s in _spills(log).items() if "ILi256E" in n}
+    print(f"<256> instantiations: {len(hd256)}, spill bytes (stores, "
+          f"loads) {sorted(hd256.values())}")
+    if len(hd256) != 3 or any(s != (0, 0) for s in hd256.values()):
+        raise AssertionError(f"B1-B3 at head dim 256: {hd256}")
 
 
 def main() -> int:
@@ -4525,11 +4869,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print("  " + line.strip())
+    _check_hd256_spills(built[KERNEL_SOURCES.index("flash_attention")][2])
 
     first = _run_half("1")
     second = _run_half("2")
     third = _run_half("3")
     _run_half("4")
+    fifth = _run_half("5")
 
     rows = [_kernel_row("paged_decode_attention", "paged_attention.cu",
                         "tpu_dra_driver/workloads/ops/paged_attention.py:112",
@@ -4561,6 +4907,21 @@ def main() -> int:
     rows.append(_kernel_row("flash_decode_attention", "decode_attention.cu",
                             "tpu_dra_driver/workloads/ops/decode_attention.py:73",
                             first["decode_launches"], first["decode"]))
+    # the five at head dim 256 (phase 32), launches counted over HD256's
+    # three training steps, its long-chain generate call and serving run
+    for name, replaces in FLASH_KERNELS:
+        rows.append(_kernel_row(f"{name} (hd256, b8 h8/1 t2048 d256 causal)",
+                                "flash_attention.cu", replaces,
+                                fifth["flash_launches"][name],
+                                fifth["flash"][name]))
+    rows.append(_kernel_row("paged_decode_attention (hd256, h8/1 d256)",
+                            "paged_attention.cu",
+                            "tpu_dra_driver/workloads/ops/paged_attention.py:112",
+                            fifth["paged_launches"], fifth["paged"]))
+    rows.append(_kernel_row("flash_decode_attention (hd256, b8 h8/1 L3200 "
+                            "d256 pos 2048)", "decode_attention.cu",
+                            "tpu_dra_driver/workloads/ops/decode_attention.py:73",
+                            fifth["decode_launches"], fifth["decode"]))
     print(json.dumps({"kernels": rows}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

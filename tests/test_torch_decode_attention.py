@@ -43,6 +43,22 @@ CASES = {
     "int8_pos_last": (1, 4, 2, 384, 32, 383, True),
     "ring_wrapped": (2, 8, 2, 256, 64, 1000, False),
     "ring_wrapped_int8": (1, 4, 1, 256, 16, 700, True),
+    # head dim 256 over one KV head (Gemma-class MQA)
+    "hd256_mqa_pos_mid": (2, 8, 1, 384, 256, 200, False),
+    "hd256_mqa_int8": (2, 8, 1, 384, 256, 383, True),
+}
+
+# bf16 queries (and a bf16 or int8 cache) against the Pallas kernel fed
+# the same bf16 numbers: 2^-6 of the output's largest |value|. Both sum
+# in f32 but round P to bf16 for P.V against different running maxima
+# (one bf16 ulp, 2^-8, of each weight) and round the output to bf16.
+# Observed: at most 2.6e-3 of that value.
+TOL_BF16 = 2.0 ** -6
+# name -> (b, h, h_kv, L, hd, pos, int8), bf16 queries
+BF16_CASES = {
+    "hd256_bf16": (2, 8, 1, 384, 256, 300, False),
+    "hd256_bf16_int8": (2, 8, 1, 384, 256, 300, True),
+    "hd128_bf16": (2, 8, 2, 384, 128, 300, False),
 }
 
 
@@ -83,6 +99,29 @@ def test_port_matches_pallas_kernel_and_masked_read(name):
     assert got.shape == (b, h, 1, hd) and got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(kernel), **TOL)
     np.testing.assert_allclose(got, np.asarray(masked), **TOL)
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_queries_match_pallas_kernel(name):
+    b, h, h_kv, L, hd, pos, int8 = BF16_CASES[name]
+    q, k, v, ks, vs = _inputs(b, h, h_kv, L, hd, int8, seed=1)
+
+    def port(x):
+        x = torch.from_numpy(x)
+        return x if x.dtype == torch.int8 else x.to(torch.bfloat16)
+
+    def ref(x):
+        return jnp.asarray(x) if x.dtype == np.int8 \
+            else jnp.asarray(x, jnp.bfloat16)
+
+    got = td.flash_decode_attention(port(q), port(k), port(v), pos,
+                                    *_torch(ks, vs))
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, 1, hd)
+    want = jd.flash_decode_attention(ref(q), ref(k), ref(v), jnp.int32(pos),
+                                     *_jax(ks, vs), interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=TOL_BF16 * np.abs(want).max())
 
 
 def test_plain_version_reads_only_visible_slots():

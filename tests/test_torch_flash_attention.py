@@ -52,6 +52,9 @@ CASES = {
     "noncausal_tkv_ne_t": ((1, 2, 1, 128, 256, 32), dict(causal=False)),
     # a chunk whose KV length is no multiple of the kernels' 64-row tiles
     "row_offset_ragged_tkv": ((1, 2, 1, 40, 100, 32), dict(row_offset=60)),
+    # head dim 256 (Gemma-class heads), the kernels' widest
+    "causal_d256": ((1, 2, 1, 128, 128, 256), {}),
+    "gqa_4to1_window_d256": ((1, 4, 1, 256, 256, 256), dict(window=64)),
 }
 
 

@@ -326,3 +326,32 @@ def test_train_tokens_per_sec_runs_on_the_cpu():
                                   steps_long=3, cfg=cfg, device="cpu")
     assert out["train_tokens_per_sec"] > 0 and out["params_m"] > 0
     assert out["shape"].endswith("flash")
+
+
+@pytest.mark.parametrize("use_flash", [True, False, None])
+def test_train_tokens_per_sec_use_flash_picks_the_attention(use_flash,
+                                                           monkeypatch):
+    """``use_flash`` as the reference names it: True (the default, None
+    here) runs ``flash_attention``, False ``attention_reference``; the
+    shape string says which, as the reference's does."""
+    calls = []
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tt, "flash_attention",
+                        counted("flash", tt.flash_attention))
+    monkeypatch.setattr(tt, "attention_reference",
+                        counted("reference", tt.attention_reference))
+    cfg = tt.ModelConfig(vocab=128, d_model=64, n_heads=2, n_layers=2,
+                         d_ff=128, max_seq=16, use_rope=True)
+    kw = {} if use_flash is None else {"use_flash": use_flash}
+    out = tt.train_tokens_per_sec(b=2, t=16, iters=1, steps_short=1,
+                                  steps_long=2, cfg=cfg, device="cpu", **kw)
+    flash = use_flash is not False
+    assert set(calls) == {"flash" if flash else "reference"}
+    assert out["shape"] == "b2 t16 L2 d64" + (" flash" if flash else "")
+    assert out["train_tokens_per_sec"] > 0

@@ -25,15 +25,15 @@ TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
 
 
 def _case(lens, seed=0, garbage=True, block_t=BLOCK_T,
-          max_blocks=MAX_BLOCKS, n_blocks=N_BLOCKS):
+          max_blocks=MAX_BLOCKS, n_blocks=N_BLOCKS, h_kv=H_KV, hd=HD):
     """Random pools with each row's live blocks at shuffled physical ids
     (block 0 stays the null block) and, when ``garbage``, table entries
     past the live range that are not valid block ids."""
     rng = np.random.default_rng(seed)
-    pool_k = rng.standard_normal((n_blocks, H_KV, block_t, HD)).astype(
+    pool_k = rng.standard_normal((n_blocks, h_kv, block_t, hd)).astype(
         np.float32)
     pool_v = rng.standard_normal(pool_k.shape).astype(np.float32)
-    q = rng.standard_normal((B, H, 1, HD)).astype(np.float32)
+    q = rng.standard_normal((B, H, 1, hd)).astype(np.float32)
     phys = iter(rng.permutation(np.arange(1, n_blocks)))
     table = np.zeros((B, max_blocks), np.int32)
     for i, n in enumerate(lens):
@@ -115,6 +115,19 @@ def test_split_edges_match_pallas_kernel(block_t, lens, dtype):
     for i, n in enumerate(lens):
         if n == 0:
             assert not got[i].any(), "a length-0 row gives 0"
+
+
+# head dim 256 over one KV head (Gemma-class MQA), the kernel's widest
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_matches_pallas_kernel(dtype):
+    lens = (0, 9, 40, 23)
+    case = _case(lens, seed=7, max_blocks=8, h_kv=1, hd=256)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    got = _port(*case, 8, dtype=dtype)
+    want = _jax_kernel(*case, 8, dtype=jdtype)
+    tol = TOL[np.float32] if dtype == torch.float32 else TOL["bfloat16"]
+    np.testing.assert_allclose(got, want, **tol)
+    assert got.shape == (B, H, 1, 256) and not got[0].any()
 
 
 def test_split_covers_the_walk_in_chunks():

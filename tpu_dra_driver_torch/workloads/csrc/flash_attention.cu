@@ -78,8 +78,18 @@
 // runs while the second product of tile j - 1 is still on the tensor
 // cores. B2 streams K and V in 64-row tiles, so that dQ (HD / 2 f32 a
 // thread), S, dP and the dS operand fit the registers. Head dims up to
-// 64 and up to 128 are two instantiations; the columns past d are
-// zero-filled by TMA and never stored.
+// 64, up to 128 and up to 256 are three instantiations; the columns past
+// d are zero-filled by TMA and never stored.
+//
+// Head dim 256 (Gemma-class heads) keeps each kernel's shape where the
+// 227 KiB of shared memory and 240 registers a consumer thread allow it:
+// B1 streams K/V in 64-row tiles through two stages (O is 128 f32 a
+// thread, S 32); B2 in 32-row tiles through three (dQ 128, S and dP 16
+// each); B3 cannot hold dK and dV of 64 rows x 256 (256 f32 a thread), so
+// its CTA takes 64 KV rows and splits the head dim over the two consumer
+// warpgroups, each holding half of dK and dV, as FlashAttention-3 does.
+// Both warpgroups compute the whole S^T and dP^T (a reduction over all of
+// d), so B3 at 256 does 1.5 times the products it needs.
 //
 // The f32 instantiations multiply with plain FMAs on 32-row tiles in
 // shared memory, so their comparison with the plain version is tight.
@@ -97,7 +107,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
+// the dynamic shared memory a block may opt into on sm_90
+constexpr size_t kMaxSmem = 232448;
 
 // rows per tile and row padding (elements) of the f32 kernels' tiles
 template <typename T> struct Cfg;
@@ -774,6 +786,20 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[N / 2],
   }
 }
 
+// d (+)= A . B, m64n32k16: A and B in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (+)= A . B, m64n64k16: A and B in shared memory, both K-major
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                               uint64_t db, int accumulate) {
@@ -862,6 +888,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// d += A . B with A in registers and B in shared memory MN-major at `b`:
+// 16 K rows of 128-byte-swizzled panels, `panel` bytes from one 64-column
+// panel to the next. N is twice d's size: 64, 128, or 256 as two
+// m64n128k16 products over panels 0-1 and 2-3.
+template <int M>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[M],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b, uint32_t panel) {
+  if constexpr (M <= 64) {
+    wgmma_rs(d, a, desc(b, panel, kAtom));
+  } else {
+    static_assert(M == 128, "N is at most 256");
+    wgmma_rs(reinterpret_cast<float(&)[64]>(d[0]), a, desc(b, panel, kAtom));
+    wgmma_rs(reinterpret_cast<float(&)[64]>(d[64]), a,
+             desc(b + 2 * panel, panel, kAtom));
+  }
+}
+
 // global rows [r0, r1] x columns [c0, c1] all visible: no mask needed
 __device__ __forceinline__ bool unmasked(const Args& a, int r0, int r1,
                                          int c0, int c1) {
@@ -873,10 +917,14 @@ __device__ __forceinline__ bool unmasked(const Args& a, int r0, int r1,
 // ---------------------------------------------------- B1 forward, bf16
 
 template <int HD> struct Fwd {
-  static constexpr int kBN = 128;           // KV rows per ring stage
+  // KV rows per ring stage: at HD 256 the 64-row tiles keep S (32 f32 a
+  // thread) and P beside O (128) in the registers
+  static constexpr int kBN = HD > 128 ? 64 : 128;
   // three stages: the pipelined walk holds tile it - 1 (V) and tile it
-  // (K) while the producer fills the next
-  static constexpr int kStages = 3;
+  // (K) while the producer fills the next; at HD 256 the shared memory
+  // holds two, so the producer loads tile it + 1 once tile it - 1 is
+  // released
+  static constexpr int kStages = HD > 128 ? 2 : 3;
   static constexpr int kPanels = HD / 64;
   static constexpr uint32_t kQWg = kPanels * kRows * kPanelRow;
   static constexpr uint32_t kKv = kPanels * kBN * kPanelRow;  // K or V
@@ -886,11 +934,12 @@ template <int HD> struct Fwd {
   static constexpr uint32_t kBars = kV + kStages * kKv;
   // q, k_full[S], v_full[S], empty[S]; + slack to align the base to 1024
   static constexpr uint32_t kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "B1's tiles fit the shared memory");
 };
 
 // B1 in bf16, replaces `_flash_kernel` (ops/attention.py:105). One CTA
 // per (128-row q tile, b * h); consumer warpgroup w owns q rows
-// [64 w, 64 w + 64) of the tile. Per KV tile of 128 rows: S = Q K^T by
+// [64 w, 64 w + 64) of the tile. Per KV tile of kBN rows: S = Q K^T by
 // wgmma from shared memory, the online softmax on the fragment, O *=
 // alpha and O += P V with P from registers. Returns out (bf16) and the
 // natural-log lse.
@@ -990,8 +1039,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(bar_v + 8 * (it % L::kStages), (it / L::kStages) & 1);
 #pragma unroll
       for (int k = 0; k < kBN / 16; ++k)
-        wgmma_rs(o, pa[k],
-                 desc(v_s + k * 16 * kPanelRow, kBN * kPanelRow, kAtom));
+        wgmma_rs_mn(o, pa[k], v_s + k * 16 * kPanelRow, kBN * kPanelRow);
       wg_commit();
     };
     // online softmax in base 2 on the fragment of tile `it`: sc becomes
@@ -1115,6 +1163,14 @@ template <int HD> struct Dkv {
   static constexpr int kBQ = 64;            // q rows per ring stage
   static constexpr int kStages = 2;
   static constexpr int kPanels = HD / 64;
+  // up to HD 128 each consumer warpgroup owns 64 KV rows of a 128-row
+  // tile, all of the head dim; at HD 256 the CTA owns 64 KV rows and each
+  // warpgroup half of the head dim of them (dK and dV of 64 x 256 would
+  // take 256 f32 registers a thread)
+  static constexpr bool kSplit = HD > 128;
+  static constexpr int kHdWg = kSplit ? HD / kConsumers : HD;
+  static constexpr int kKvBlocks = kSplit ? 1 : kConsumers;  // 64-row ones
+  static constexpr int kCols = kKvBlocks * kRows;            // KV rows a CTA
   static constexpr uint32_t kKvWg = kPanels * kRows * kPanelRow;  // K or V
   static constexpr uint32_t kQt = kPanels * kBQ * kPanelRow;      // Q or dO
   static constexpr uint32_t kRowVec = kBQ * 4;                    // lse or D
@@ -1124,21 +1180,24 @@ template <int HD> struct Dkv {
   static constexpr uint32_t kLoaded = 2 * kQt + 2 * kRowVec;  // per stage
   static_assert(2 * kRowVec <= 1024, "lse and D fit the pad");
   static constexpr uint32_t kK = 0;
-  static constexpr uint32_t kV = kK + kConsumers * kKvWg;
-  static constexpr uint32_t kRing = kV + kConsumers * kKvWg;
+  static constexpr uint32_t kV = kK + kKvBlocks * kKvWg;
+  static constexpr uint32_t kRing = kV + kKvBlocks * kKvWg;
   static constexpr uint32_t kBars = kRing + kStages * kStage;
   // kv, full[S], empty[S]; + slack to align the base to 1024
   static constexpr uint32_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "B3's tiles fit the shared memory");
 };
 
 // B3 in bf16, replaces `_flash_bwd_dkv_kernel` (ops/attention.py:635).
-// One CTA per (128-row KV tile, b * h_kv); consumer warpgroup w owns KV
-// rows [64 w, 64 w + 64) of the tile and keeps their dK and dV in
+// One CTA per (kCols-row KV tile, b * h_kv); consumer warpgroup w owns KV
+// rows [64 w, 64 w + 64) of the tile (at HD 256: the tile's 64 rows, head
+// dim columns [128 w, 128 w + 128)) and keeps their dK and dV in
 // registers while the CTA walks every head of its GQA group and the q
 // tiles that can see its columns: no atomics, the same result from run
 // to run. Per q tile: S^T = K Q^T and dP^T = V dO^T by wgmma from shared
-// memory, P^T and dS^T = P^T (dP^T - D) on the fragments, then dV +=
-// P^T dO and dK += dS^T Q with P^T and dS^T from registers.
+// memory (over the whole head dim), P^T and dS^T = P^T (dP^T - D) on the
+// fragments, then dV += P^T dO and dK += dS^T Q (the warpgroup's columns
+// of dO and Q) with P^T and dS^T from registers.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
@@ -1157,8 +1216,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_empty = bar_full + 8 * L::kStages;
 
   const int kvh = blockIdx.x;                       // b * h_kv + kv head
-  const int c0 = blockIdx.y * (kConsumers * kRows);  // longest causal first
-  const int cols = min(kConsumers * kRows, a.tkv - c0);
+  const int c0 = blockIdx.y * L::kCols;             // longest causal first
+  const int cols = min(L::kCols, a.tkv - c0);
   const int group = a.h / a.h_kv;
   const int bb = kvh / a.h_kv;
   const int hk = kvh - bb * a.h_kv;
@@ -1219,17 +1278,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
     const int qr = lane / 4, qc = 2 * (lane % 4);
-    const uint32_t k_s = base + L::kK + wg * L::kKvWg;
-    const uint32_t v_s = base + L::kV + wg * L::kKvWg;
-    const int cw = c0 + kRows * wg;                   // first KV column
+    const int blk = L::kSplit ? 0 : wg;               // the 64 KV rows
+    const uint32_t k_s = base + L::kK + blk * L::kKvWg;
+    const uint32_t v_s = base + L::kV + blk * L::kKvWg;
+    const int cw = c0 + kRows * blk;                  // first KV column
     const int kc = cw + 16 * warp + qr;               // this thread's
+    // the warpgroup's head-dim columns [col0, col0 + kHdWg) of dK and dV,
+    // and their panels' offset in a Q or dO tile
+    const int col0 = L::kSplit ? wg * L::kHdWg : 0;
+    const uint32_t qpanel = (col0 / 64) * kBQ * kPanelRow;
     const float qk_scale = a.scale * kLog2e;
     const float* ring = reinterpret_cast<const float*>(
         smem_raw + (base - smem_addr(smem_raw)) + L::kRing);
 
-    float dk[HD / 2], dv[HD / 2];
+    float dk[L::kHdWg / 2], dv[L::kHdWg / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < L::kHdWg / 2; ++i) dk[i] = dv[i] = 0.f;
 
     mbar_wait(bar_kv, 0);
     for (int it = 0; it < n; ++it) {
@@ -1286,12 +1350,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_fence();
 #pragma unroll
       for (int k = 0; k < kBQ / 16; ++k)
-        wgmma_rs(dv, pa[k],
-                 desc(do_st + k * 16 * kPanelRow, kBQ * kPanelRow, kAtom));
+        wgmma_rs_mn(dv, pa[k], do_st + qpanel + k * 16 * kPanelRow,
+                    kBQ * kPanelRow);
 #pragma unroll
       for (int k = 0; k < kBQ / 16; ++k)
-        wgmma_rs(dk, dsa[k],
-                 desc(q_st + k * 16 * kPanelRow, kBQ * kPanelRow, kAtom));
+        wgmma_rs_mn(dk, dsa[k], q_st + qpanel + k * 16 * kPanelRow,
+                    kBQ * kPanelRow);
       wg_commit();
       wg_wait<0>();
       fence_regs(dk);
@@ -1309,8 +1373,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (c >= a.tkv) continue;
       const size_t row = ((size_t)kvh * a.tkv + c) * d;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int col = 8 * j + qc;
+      for (int j = 0; j < L::kHdWg / 8; ++j) {
+        const int col = col0 + 8 * j + qc;
         if (col >= d) continue;
         store2(a.dk, row + col, dk[4 * j + 2 * i] * a.scale,
                dk[4 * j + 2 * i + 1] * a.scale, a.grad_f32);
@@ -1324,7 +1388,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ------------------------------------------------------------ B2 dq, bf16
 
 template <int HD> struct Dq {
-  static constexpr int kBN = 64;            // KV rows per ring stage
+  // KV rows per ring stage: at HD 256, Q and dO of the two warpgroups
+  // take 128 KiB, and 32-row K/V tiles let three stages fit beside them
+  static constexpr int kBN = HD > 128 ? 32 : 64;
   // three stages: the pipelined walk holds tiles it - 1 (K, for dQ) and
   // it (K and V, for S and dP) while the producer fills the next
   static constexpr int kStages = 3;
@@ -1343,13 +1409,14 @@ template <int HD> struct Dq {
   static constexpr uint32_t kBars = kV + kStages * kKv;
   // q, full[S], empty[S]; + slack to align the base to 1024
   static constexpr uint32_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "B2's tiles fit the shared memory");
 };
 
 // B2 in bf16, replaces `_flash_bwd_dq_kernel` (ops/attention.py:528). One
 // CTA per (128-row q tile, b * h), the longest causal rows first;
 // consumer warpgroup w owns q rows [64 w, 64 w + 64) of the tile and
 // keeps their dQ in registers while the producer streams the KV tiles
-// the rows can see, 64 rows at a time. Per KV tile: S = Q K^T and dP =
+// the rows can see, kBN rows at a time. Per KV tile: S = Q K^T and dP =
 // dO V^T by wgmma from shared memory, P = exp2(S scale log2e - lse
 // log2e) and dS = P (dP - D) on the fragments, then dQ += dS K with dS
 // from registers and K read MN-major from the same swizzled tile.
@@ -1476,8 +1543,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t k_s = base + L::kK + (it % L::kStages) * L::kKv;
 #pragma unroll
       for (int k = 0; k < kBN / 16; ++k)
-        wgmma_rs(dq, dsa[k],
-                 desc(k_s + k * 16 * kPanelRow, kBN * kPanelRow, kAtom));
+        wgmma_rs_mn(dq, dsa[k], k_s + k * 16 * kPanelRow, kBN * kPanelRow);
       wg_commit();
     };
     // P (0 where the mask hides the pair, and on rows past t) and dS =
@@ -1721,8 +1787,7 @@ int launch_dkv_sm90(const Args& a, cudaStream_t s) {
   if (int e = vec_map(&tlse, a.lse_in, rows, L::kBQ)) return e;
   if (int e = vec_map(&tdd, a.dd, rows, L::kBQ)) return e;
   if (int e = prepare(sm90::flash_bwd_dkv_kernel_sm90<HD>, L::kSmem)) return e;
-  constexpr int kTile = sm90::kConsumers * sm90::kRows;
-  const dim3 grid(a.b * a.h_kv, (a.tkv + kTile - 1) / kTile);
+  const dim3 grid(a.b * a.h_kv, (a.tkv + L::kCols - 1) / L::kCols);
   sm90::flash_bwd_dkv_kernel_sm90<HD>
       <<<grid, sm90::kThreads, L::kSmem, s>>>(tq, tdo, tk, tv, tlse, tdd, a);
   return (int)cudaGetLastError();
@@ -1743,6 +1808,16 @@ Args make_args(int b, int h, int h_kv, int t, int tkv, int d, int causal,
   a.prefix = prefix;
   a.scale = 1.0f / sqrtf((float)d);
   return a;
+}
+
+// the bf16 instantiation for the head dim: the narrowest that holds d
+int launch_sm90(int (*hd64)(const Args&, cudaStream_t),
+                int (*hd128)(const Args&, cudaStream_t),
+                int (*hd256)(const Args&, cudaStream_t), const Args& a,
+                cudaStream_t s) {
+  if (a.d <= 64) return hd64(a, s);
+  if (a.d <= 128) return hd128(a, s);
+  return hd256(a, s);
 }
 
 int check_shape(int b, int h, int h_kv, int t, int tkv, int d) {
@@ -1771,7 +1846,8 @@ extern "C" int flash_attention_forward_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd<float>(a, s);
   if (dtype == 1)
-    return d <= 64 ? launch_fwd_sm90<64>(a, s) : launch_fwd_sm90<128>(a, s);
+    return launch_sm90(launch_fwd_sm90<64>, launch_fwd_sm90<128>,
+                       launch_fwd_sm90<256>, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1794,7 +1870,8 @@ extern "C" int flash_attention_backward_dq_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dq<float>(a, s);
   if (dtype == 1)
-    return d <= 64 ? launch_dq_sm90<64>(a, s) : launch_dq_sm90<128>(a, s);
+    return launch_sm90(launch_dq_sm90<64>, launch_dq_sm90<128>,
+                       launch_dq_sm90<256>, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1818,7 +1895,8 @@ extern "C" int flash_attention_backward_dkv_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dkv<float>(a, s);
   if (dtype == 1)
-    return d <= 64 ? launch_dkv_sm90<64>(a, s) : launch_dkv_sm90<128>(a, s);
+    return launch_sm90(launch_dkv_sm90<64>, launch_dkv_sm90<128>,
+                       launch_dkv_sm90<256>, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

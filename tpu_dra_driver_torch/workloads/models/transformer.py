@@ -1039,6 +1039,7 @@ def _sharded_layout(spmd, params: Params, shardings=None):
 def train_tokens_per_sec(b: int = 8, t: int = 2048, iters: int = 3,
                          steps_short: int = 2, steps_long: int = 12,
                          cfg: Optional[ModelConfig] = None,
+                         use_flash: bool = True,
                          device="cuda") -> dict:
     """Full-model training throughput: tokens/s and achieved model
     TFLOP/s of chained train steps (gradient and ``default_optimizer()``
@@ -1047,8 +1048,10 @@ def train_tokens_per_sec(b: int = 8, t: int = 2048, iters: int = 3,
     chain on the card, the marginal rate between the two chain lengths
     without one. FLOPs per token: 6 N for the matrix products forward
     and backward plus 6 * n_layers * t * d_model for causal attention,
-    an estimate by design. Attention is ``flash_attention``: its kernels
-    on the card, their plain versions on the CPU."""
+    an estimate by design. Attention is ``flash_attention`` with
+    ``use_flash`` (its kernels on the card, their plain versions on the
+    CPU), else ``attention_reference``; the caller chooses (the
+    reference picks flash on a TPU when given None)."""
     dev = resolve_device(device)
     cfg = cfg or ModelConfig(vocab=8192, d_model=2048, n_heads=16,
                              n_kv_heads=4, n_layers=8, d_ff=8192,
@@ -1057,7 +1060,8 @@ def train_tokens_per_sec(b: int = 8, t: int = 2048, iters: int = 3,
                              scan_unroll=8)
     params = init_params(cfg, 0, device=dev)
     train_step, opt_init = make_train_step(
-        cfg, optimizer=default_optimizer(), attn_fn=flash_attention)
+        cfg, optimizer=default_optimizer(),
+        attn_fn=flash_attention if use_flash else attention_reference)
     opt_state = opt_init(params)
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (b, t), generator=gen,
@@ -1081,4 +1085,5 @@ def train_tokens_per_sec(b: int = 8, t: int = 2048, iters: int = 3,
             "train_step_ms": per_step * 1e3,
             "model_tflops": tps * flops_per_token / 1e12,
             "params_m": n_params / 1e6,
-            "shape": f"b{b} t{t} L{cfg.n_layers} d{cfg.d_model} flash"}
+            "shape": (f"b{b} t{t} L{cfg.n_layers} d{cfg.d_model}"
+                      + (" flash" if use_flash else ""))}

@@ -52,7 +52,7 @@ LOG2E = 1.4426950408889634
 _SUPER_KV = 4096
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -271,7 +271,13 @@ def _kernel_checks(name: str, q, k, v, *others) -> None:
             or v.dtype != q.dtype:
         raise ValueError(f"{name}'s kernel takes q, k and v all bf16 or all "
                          f"f32; got {q.dtype}, {k.dtype}, {v.dtype}")
-    d = q.shape[-1]
+    check_head_dim(name, q.shape[-1])
+
+
+def check_head_dim(name: str, d: int) -> None:
+    """B1-B3's rule for the head dim, which needs no card: a multiple of
+    16, at most ``_MAX_HEAD_DIM``; raises ``ValueError`` naming
+    ``name``."""
     if d % 16 or d > _MAX_HEAD_DIM:
         raise ValueError(f"{name}'s kernel takes a head dim that is a "
                          f"multiple of 16 and at most {_MAX_HEAD_DIM}; "
@@ -464,9 +470,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     checked as the reference checks them (a sequence with no block
     divisor of at least 128 raises) but do not set the tiles: the CUDA
     kernels choose their own (in bf16, 128 q rows by 128 KV rows in the
-    forward, 128 KV rows by 64 q rows in dk/dv, 64 by 64 in dq; 32 rows
+    forward, 128 KV rows by 64 q rows in dk/dv, 128 q rows by 64 KV rows
+    in dq; at head dims above 128, 64, 64 and 32 of the second; 32 rows
     in f32). The kernels take a head dim that is a multiple of 16, at
-    most 128."""
+    most 256."""
     _check_flash_args(q, k, v, causal, block_q, block_kv, window,
                       row_offset, prefix)
     return _FlashAttention.apply(q, k, v, causal, window, row_offset,

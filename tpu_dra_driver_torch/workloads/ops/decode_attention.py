@@ -216,9 +216,7 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if hd % 16 or hd > _MAX_HEAD_DIM:
-        raise ValueError(f"kernel takes head dims that are multiples of 16 "
-                         f"up to {_MAX_HEAD_DIM}; got {hd}")
+    check_head_dim(hd)
     # The kernel replaces the Pallas `_decode_kernel` of
     # tpu_dra_driver/workloads/ops/decode_attention.py. Its bound on the
     # H100 is bytes: the live K and V (and scales), read once, over
@@ -256,6 +254,14 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_decode_attention.launches = 0
+
+
+def check_head_dim(hd: int) -> None:
+    """B5's rule for the head dim, which needs no card: a multiple of 16,
+    at most ``_MAX_HEAD_DIM``; raises ``ValueError``."""
+    if hd % 16 or hd > _MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes head dims that are multiples of 16 "
+                         f"up to {_MAX_HEAD_DIM}; got {hd}")
 
 
 @functools.lru_cache(maxsize=None)

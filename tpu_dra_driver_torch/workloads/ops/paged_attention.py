@@ -218,9 +218,7 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     # ``part``; see csrc/paged_attention.cu.
     b, h, _, hd = q.shape
     n_blocks, h_kv, block_t, _ = pool_k.shape
-    if hd > _MAX_HEAD_DIM or hd * q.element_size() % 16:
-        raise ValueError(f"kernel takes head dims of a multiple of 16 bytes "
-                         f"up to {_MAX_HEAD_DIM}; got {hd} in {q.dtype}")
+    check_head_dim(hd, q.dtype)
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -248,6 +246,15 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def check_head_dim(hd: int, dtype: torch.dtype) -> None:
+    """B4's rule for the head dim, which needs no card: rows of a multiple
+    of 16 bytes in ``dtype``, at most ``_MAX_HEAD_DIM`` values; raises
+    ``ValueError``."""
+    if hd > _MAX_HEAD_DIM or hd * dtype.itemsize % 16:
+        raise ValueError(f"kernel takes head dims of a multiple of 16 bytes "
+                         f"up to {_MAX_HEAD_DIM}; got {hd} in {dtype}")
 
 
 def _kernel_library() -> ctypes.CDLL:
