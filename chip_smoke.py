@@ -375,14 +375,23 @@ DECODE_MUTANT_TILE = 64
 # paged decode (B4) at the full-width serving read: a length-0 row, rows
 # ending on a block edge (512, 1024), a 1-token row
 PAGED_LENS = (0, 512, 1024, 1, 700, 129, 383, 960)
-# ... at the edges of its split into chunks of 64 tokens (rows ending one
-# token into a chunk, rows of exactly one chunk or of whole chunks), with
+# ... at the edges of its split into chunks of 64 tokens (f32; bf16 runs
+# chunks of 32: 65 and 193 end one token into one of those too) (rows
+# ending one token into a chunk, rows of exactly one chunk or of whole
+# chunks), with
 # 128-token blocks (two chunks to a block) and with 16-token blocks (four
 # blocks to a chunk): name -> (block_t, lens); the walk covers the
 # longest row's blocks rounded up to a power of two, as the engine's
 PAGED_EDGE_CASES = {
     "chunk_edges": (128, (65, 64, 0, 1, 128, 193, 575, 640)),
     "block_t_16": (16, (65, 64, 17, 0, 1, 16, 300, 513)),
+}
+# ... and at the edges of the tensor-core kernel's chunks of 32 tokens
+# (h_kv 1, hd 256, bf16), with 8-token blocks (four to a chunk, so four
+# bulk copies of K and of V)
+PAGED_EDGE_CASES_HD256 = {
+    "chunk_edges_32": (128, (33, 32, 0, 1, 31, 97, 575, 640)),
+    "block_t_8": (8, (33, 32, 9, 0, 1, 8, 300, 513)),
 }
 # the sub-tile (slots) whose omission from the middle of the longest row
 # the bf16 allowance must see in each of its query heads
@@ -783,33 +792,14 @@ def _paged_check(label, inputs, mutant=False) -> float:
     return err
 
 
-def paged_launch_phase(gen, iters: int = 20) -> dict:
+def paged_launch_phase(gen) -> dict:
     """B4's two launches (split and merge) timed apart at phase 3's
-    serving read, each call after a flush of the L2: mean device ms per
-    launch over ``iters`` calls under ``torch.profiler``. It runs last,
-    after every wall-clock reading, as the parent's script first runs
-    the profiler only after its serving phase."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    q, pk, pv, table, lens, n_live = paged_inputs(torch.bfloat16, gen)
+    serving read by ``_paged_profile``. It runs last, after every
+    wall-clock reading, as the parent's script first runs the profiler
+    only after its serving phase."""
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=DEV)
-    pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
-        torch.cuda.synchronize()
-    found = {}
-    for e in prof.key_averages():
-        for name in ("paged_decode_split", "paged_decode_merge"):
-            if e.device_type == DeviceType.CUDA and e.count and name in e.key:
-                found[name] = e.self_device_time_total / 1e3 / e.count
-    print(f"B4 per launch at phase 3's serving read: split "
-          f"{found.get('paged_decode_split', 0.0):.4f} ms, merge "
-          f"{found.get('paged_decode_merge', 0.0):.4f} ms")
+    found = _paged_profile(gen, flush)["B4"]
     if len(found) != 2:
         raise AssertionError(f"the profiler saw B4's launches as {found}")
     return found
@@ -842,7 +832,6 @@ def _paged_readings(gen, flush, **shape) -> dict:
                                                   **shape)
     b, h, _, hd = q.shape
     h_kv, block_t = pk.shape[1], pk.shape[2]
-    rep = h // h_kv
     got = pa.paged_decode_attention(q, pk, pv, table, lens, n_live)
     ms = time_ms(lambda: pa.paged_decode_attention(q, pk, pv, table, lens,
                                                    n_live), flush=flush)
@@ -850,26 +839,14 @@ def _paged_readings(gen, flush, **shape) -> dict:
         q, pk, pv, table, lens, n_live), iters=20, flush=flush)
     # yardstick only (the port never calls it): SDPA over the gathered
     # caches of the rows with len >= 1
-    lens_l = lens.long()
-    keep = (lens_l > 0).nonzero().flatten()
-    n_slots = n_live * block_t
-    cols = torch.minimum(torch.arange(n_live, device=DEV),
-                         ((lens_l - 1).clamp_min(0) // block_t)[:, None])
-    blocks = table.long().gather(1, cols)[keep]
-
-    def gathered(pool):
-        g = pool[blocks].transpose(1, 2).reshape(len(keep), h_kv, n_slots, hd)
-        return g.repeat_interleave(rep, dim=1)
-
-    kc, vc = gathered(pk), gathered(pv)
-    mask = (torch.arange(n_slots, device=DEV)[None, :]
-            < lens_l[keep][:, None])[:, None, None, :]
-    qk = q[keep]
-    lib_out = F.scaled_dot_product_attention(qk, kc, vc, attn_mask=mask)
+    keep, sdpa_args = _paged_sdpa_args(q, pk, pv, table, lens, n_live)
+    lib_out = F.scaled_dot_product_attention(*sdpa_args)
     lib_err = (lib_out.float() - got[keep].float()).abs().max().item()
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qk, kc, vc, attn_mask=mask), flush=flush)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(*sdpa_args),
+                         flush=flush)
     # bound: each input read once, each output written once; live K/V only
+    lens_l = lens.long()
+    n_slots = n_live * block_t
     live_tokens = lens_l.clamp_max(n_slots).sum().item()
     live_blocks = (-(-lens_l.clamp_max(n_slots) // block_t)).sum().item()
     esize = q.element_size()
@@ -880,7 +857,8 @@ def _paged_readings(gen, flush, **shape) -> dict:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOP_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     print(f"bf16 kernel {ms:.4f} ms (both launches, "
-          f"{pa._n_split(n_live, block_t)} CTAs per (sequence, KV head); "
+          f"{pa._n_split(n_live, block_t, pa._chunk(q.dtype))} CTAs "
+          f"per (sequence, KV head); "
           f"each launch is timed at the end), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max |SDPA - "
           f"kernel| {lib_err:.2e}); bound {bound_ms:.4f} ms ({n_bytes} "
           f"bytes, {n_flops} flops); kernel at {100 * bound_ms / ms:.1f}% "
@@ -888,6 +866,67 @@ def _paged_readings(gen, flush, **shape) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _paged_sdpa_args(q, pk, pv, table, lens, n_live):
+    """(the rows with len >= 1, SDPA's arguments over their gathered
+    caches, the GQA group repeated and the slots past len masked)."""
+    b, h, _, hd = q.shape
+    h_kv, block_t = pk.shape[1], pk.shape[2]
+    lens_l = lens.long()
+    keep = (lens_l > 0).nonzero().flatten()
+    n_slots = n_live * block_t
+    cols = torch.minimum(torch.arange(n_live, device=DEV),
+                         ((lens_l - 1).clamp_min(0) // block_t)[:, None])
+    blocks = table.long().gather(1, cols)[keep]
+
+    def gathered(pool):
+        g = pool[blocks].transpose(1, 2).reshape(len(keep), h_kv, n_slots, hd)
+        return g.repeat_interleave(h // h_kv, dim=1)
+
+    mask = (torch.arange(n_slots, device=DEV)[None, :]
+            < lens_l[keep][:, None])[:, None, None, :]
+    return keep, (q[keep], gathered(pk), gathered(pv), mask)
+
+
+def _paged_profile(gen, flush, iters: int = 20, **shape) -> dict:
+    """B4 at ``paged_inputs(bf16, **shape)`` and SDPA over the gathered
+    caches on one clock: mean device ms per launch of each kernel in one
+    ``torch.profiler`` session, each call after a flush of the L2.
+    Returns {"B4": {kernel name: ms}, "SDPA": {kernel name: ms}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, pk, pv, table, lens, n_live = paged_inputs(torch.bfloat16, gen,
+                                                  **shape)
+    _, sdpa_args = _paged_sdpa_args(q, pk, pv, table, lens, n_live)
+    calls = (lambda: pa.paged_decode_attention(q, pk, pv, table, lens,
+                                               n_live),
+             lambda: F.scaled_dot_product_attention(*sdpa_args))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for fn in calls:
+                flush.zero_()
+                fn()
+        torch.cuda.synchronize()
+    found = {"B4": {}, "SDPA": {}}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if e.device_type != DeviceType.CUDA or not e.count \
+                or "zero" in low or "fill" in low:
+            continue
+        mean = e.self_device_time_total / 1e3 / e.count
+        found["B4" if "paged_decode" in low else "SDPA"][e.key] = mean
+    where = "".join(f", {k} {v}" for k, v in sorted(shape.items()))
+    for key, kernels in found.items():
+        print(f"{key} at phase 3's lens{where} by the profiler: "
+              f"{sum(kernels.values()):.4f} ms = "
+              + " + ".join(f"{name[:90]} {ms:.4f}"
+                           for name, ms in kernels.items()))
+    return found
 
 
 def small_engine_phase() -> None:
@@ -1601,17 +1640,19 @@ def _decode_graph_check(gen) -> None:
           f"replay equal to the eager call")
 
 
-def _decode_profile(gen, flush, pos, iters: int = 20) -> None:
+def _decode_profile(gen, flush, pos, shape=DECODE_FULL,
+                    iters: int = 20) -> dict:
     """B5's split and merge kernels (bf16 and int8 caches) and SDPA over
-    the live slots on one clock: mean device ms per launch of each
-    kernel in one ``torch.profiler`` session, each call after a flush of
-    the L2, after every event reading of the phase. A kernel the
-    profiler recorded no time for is reported as not measured."""
+    the live slots at ``shape`` on one clock: mean device ms per launch
+    of each kernel in one ``torch.profiler`` session, each call after a
+    flush of the L2, after every event reading of the phase. A kernel
+    the profiler recorded no time for is reported as not measured.
+    Returns {"bf16 split", "int8 split", "merge": (kernel name, ms)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v, _, _ = _decode_inputs(DECODE_FULL, torch.bfloat16, gen)
-    q8, k8, v8, ks, vs = _decode_inputs(DECODE_FULL, torch.bfloat16, gen,
+    q, k, v, _, _ = _decode_inputs(shape, torch.bfloat16, gen)
+    q8, k8, v8, ks, vs = _decode_inputs(shape, torch.bfloat16, gen,
                                         int8=True)
     kl, vl = k[:, :, :pos + 1], v[:, :, :pos + 1]
     calls = (lambda: da.flash_decode_attention(q, k, v, pos),
@@ -1635,26 +1676,30 @@ def _decode_profile(gen, flush, pos, iters: int = 20) -> None:
             continue
         mean = e.self_device_time_total / 1e3 / e.count
         if "flash_decode_split" in low:
-            ms["int8 split" if "signed char" in low else "bf16 split"] = mean
+            ms["int8 split" if "signed char" in low else "bf16 split"] = (
+                e.key, mean)
         elif "flash_decode_merge" in low:
-            ms["merge"] = mean
+            ms["merge"] = (e.key, mean)
         else:
             sdpa[e.key[:40]] = mean
 
     def show(key):
-        return f"{ms[key]:.4f} ms" if key in ms else "not measured"
+        return f"{ms[key][1]:.4f} ms" if key in ms else "not measured"
 
     merge = show("merge")
     for label in ("bf16", "int8"):
         split = ms.get(f"{label} split")
-        total = (f" = {split + ms['merge']:.4f} ms"
+        total = (f" = {split[1] + ms['merge'][1]:.4f} ms"
                  if split is not None and "merge" in ms else "")
         print(f"B5 {label} at pos {pos} by the profiler: split "
               f"{show(f'{label} split')} + merge {merge}{total}")
+    for key, (name, _) in sorted(ms.items()):
+        print(f"  {key}: {name}")
     print("SDPA over the live slots by the profiler: "
           + (f"{sum(sdpa.values()):.4f} ms ("
              + ", ".join(f"{k} {v:.4f}" for k, v in sdpa.items()) + ")"
              if sdpa else "not measured"))
+    return ms
 
 
 def decode_kernel_phase(gen) -> dict:
@@ -4410,8 +4455,16 @@ FLASH_CASES_HD256 = {
                                           dict(window=32, row_offset=64)),
 }
 # B5 at the HD256 generation read: (b, h, h_kv, L, hd), pos 2048; bf16
-# queries above hd 128 take the FMA kernel
+# queries take the tensor-core kernel <256> (f32 ones the FMA kernel)
 DECODE_HD256 = (8, 8, 1, 3200, 256)
+# the kernels the HD256 reads must run, by the profiler's names
+HD256_DECODE_KERNEL = "flash_decode_split_mma_kernel"
+HD256_PAGED_KERNEL = "paged_decode_split_mma_kernel"
+# the <256> instantiations each source builds, none of which may spill:
+# B1-B3's, B5's tensor-core kernel over bf16 and int8 caches, B4's
+# tensor-core kernel
+HD256_INSTANTIATIONS = {"flash_attention": 3, "decode_attention": 2,
+                        "paged_attention": 1}
 # one past every kernel's largest head dim: each wrapper must refuse it
 REFUSED_HEAD_DIM = 272
 
@@ -4453,8 +4506,10 @@ def _refusal_probe() -> None:
 def hd256_kernel_phase(gen) -> dict:
     """B1-B3 over the mask forms at head dim 256 (and 160, 192) in f32
     and bf16, then at HD256's full-width training shape; B5 (bf16 and
-    int8 caches) and B4 at the HD256 reads: each held against its plain
-    version, timed, with its bound and library yardstick; d = 272 refused
+    int8 caches) and B4 (also at its chunks' edges) at the HD256 reads,
+    on their tensor-core kernels: each held against its plain version,
+    timed by events and by the profiler (whose kernel names must show
+    those kernels), with its bound and library yardstick; d = 272 refused
     by every wrapper."""
     for name, (shape, mask) in FLASH_CASES_HD256.items():
         _flash_f32_case(name, shape, mask, gen)
@@ -4483,8 +4538,25 @@ def hd256_kernel_phase(gen) -> dict:
             f"serving lens, h_kv {h_kv}, hd {hd}",
             paged_inputs(dtype, gen, **shape),
             mutant=dtype == torch.bfloat16)
+    for name, (block_t, lens) in PAGED_EDGE_CASES_HD256.items():
+        n_live = 1 << (-(-max(lens) // block_t) - 1).bit_length()
+        _paged_check(f"{name} (block_t {block_t}, lens {lens}, {n_live} "
+                     f"blocks walked, h_kv {h_kv}, hd {hd})",
+                     paged_inputs(torch.bfloat16, gen, block_t, lens, n_live,
+                                  **shape))
     paged = _paged_readings(gen, flush, **shape)
+    # short kernels on one clock, after the phase's event readings; the
+    # profiler's names show which kernel each read ran
+    ran = _decode_profile(gen, flush, pos, DECODE_HD256)
+    paged_ran = _paged_profile(gen, flush, **shape)["B4"]
     del flush
+    for key in ("bf16 split", "int8 split"):
+        if HD256_DECODE_KERNEL not in ran.get(key, ("",))[0]:
+            raise AssertionError(f"B5 at hd {hd} ({key}) ran "
+                                 f"{ran.get(key)}, not {HD256_DECODE_KERNEL}")
+    if not any(HD256_PAGED_KERNEL in name for name in paged_ran):
+        raise AssertionError(f"B4 at hd {hd} ran {paged_ran}, not "
+                             f"{HD256_PAGED_KERNEL}")
     torch.cuda.empty_cache()
     _refusal_probe()
     return {"flash": flash,
@@ -4839,13 +4911,17 @@ def _spills(log: str) -> dict:
     return found
 
 
-def _check_hd256_spills(log: str) -> None:
-    """B1-B3's three <256> instantiations built, none of them spilling."""
-    hd256 = {n: s for n, s in _spills(log).items() if "ILi256E" in n}
-    print(f"<256> instantiations: {len(hd256)}, spill bytes (stores, "
-          f"loads) {sorted(hd256.values())}")
-    if len(hd256) != 3 or any(s != (0, 0) for s in hd256.values()):
-        raise AssertionError(f"B1-B3 at head dim 256: {hd256}")
+def _check_hd256_spills(logs: dict) -> None:
+    """Each source's <256> instantiations (HD256_INSTANTIATIONS, by
+    source name; ``logs``: nvcc's output by source name) built, none of
+    them spilling."""
+    for source, want in HD256_INSTANTIATIONS.items():
+        hd256 = {n: s for n, s in _spills(logs[source]).items()
+                 if "Li256E" in n}
+        print(f"{source}: <256> instantiations {len(hd256)}, spill bytes "
+              f"(stores, loads) {sorted(hd256.values())}")
+        if len(hd256) != want or any(s != (0, 0) for s in hd256.values()):
+            raise AssertionError(f"{source} at head dim 256: {hd256}")
 
 
 def main() -> int:
@@ -4869,7 +4945,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print("  " + line.strip())
-    _check_hd256_spills(built[KERNEL_SOURCES.index("flash_attention")][2])
+    _check_hd256_spills({name: log for name, (_, _, log)
+                         in zip(KERNEL_SOURCES, built)})
 
     first = _run_half("1")
     second = _run_half("2")
@@ -4877,7 +4954,9 @@ def main() -> int:
     _run_half("4")
     fifth = _run_half("5")
 
-    rows = [_kernel_row("paged_decode_attention", "paged_attention.cu",
+    rows = [_kernel_row("paged_decode_attention (paged_decode_split_mma_"
+                        "kernel<128> + paged_decode_merge_rows_kernel)",
+                        "paged_attention.cu",
                         "tpu_dra_driver/workloads/ops/paged_attention.py:112",
                         first["paged_launches"], first["paged"])]
     for name, replaces in FLASH_KERNELS:
@@ -4914,12 +4993,16 @@ def main() -> int:
                                 "flash_attention.cu", replaces,
                                 fifth["flash_launches"][name],
                                 fifth["flash"][name]))
-    rows.append(_kernel_row("paged_decode_attention (hd256, h8/1 d256)",
+    rows.append(_kernel_row("paged_decode_attention (hd256, h8/1 d256: "
+                            "paged_decode_split_mma_kernel<256> + "
+                            "paged_decode_merge_rows_kernel)",
                             "paged_attention.cu",
                             "tpu_dra_driver/workloads/ops/paged_attention.py:112",
                             fifth["paged_launches"], fifth["paged"]))
     rows.append(_kernel_row("flash_decode_attention (hd256, b8 h8/1 L3200 "
-                            "d256 pos 2048)", "decode_attention.cu",
+                            "d256 pos 2048: flash_decode_split_mma_kernel"
+                            "<256> + flash_decode_merge_kernel)",
+                            "decode_attention.cu",
                             "tpu_dra_driver/workloads/ops/decode_attention.py:73",
                             fifth["decode_launches"], fifth["decode"]))
     print(json.dumps({"kernels": rows}))

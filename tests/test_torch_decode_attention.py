@@ -228,16 +228,33 @@ def test_cpu_inputs_refuse_a_pos_on_another_device():
     assert td.flash_decode_attention.launches == 0
 
 
-# The kernel's grid: splits from L, b * h_kv and the SM count only
-@pytest.mark.parametrize("L,bh,n_sm,want", [
-    (3200, 32, 132, 8),       # the full-width read: 256 CTAs
-    (3200, 512, 132, 1),      # a wide batch: one split, no merge
-    (128, 1, 132, 2),         # at most one split per 64-slot tile
-    (256, 8, 132, 4),
-    (32768, 1, 132, 264),
-])
-def test_decode_n_split(L, bh, n_sm, want):
-    assert td.decode_n_split(L, bh, n_sm) == want
+# The kernel's grid: splits from L, b * h_kv and the SM count only, and
+# from the route's CTAs per SM: two, but one for bf16 queries past head
+# dim 128 (the tensor-core kernel with its 192 KiB ring). (L, bh, n_sm,
+# ctas, want)
+N_SPLIT_CASES = [
+    (3200, 32, 132, 2, 8),    # the full-width read: 256 CTAs
+    (3200, 512, 132, 2, 1),   # a wide batch: one split, no merge
+    (128, 1, 132, 2, 2),      # at most one split per 64-slot tile
+    (256, 8, 132, 2, 4),
+    (32768, 1, 132, 2, 264),
+    # the HD256 generation read (b 8, one KV head): 16 splits, 128 CTAs of
+    # one per SM, where two per SM gave 33 (one tile each at pos 2048)
+    (3200, 8, 132, td.ctas_per_sm(torch.bfloat16, 256), 16),
+    (3200, 8, 132, td.ctas_per_sm(torch.bfloat16, 160), 16),
+    (3200, 8, 132, td.ctas_per_sm(torch.float32, 256), 33),
+    (3200, 32, 132, td.ctas_per_sm(torch.bfloat16, 128), 8),
+]
+
+
+@pytest.mark.parametrize(
+    "L,bh,n_sm,ctas,want", N_SPLIT_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[4]}" + ("" if i < 5 else f"-route{i - 5}")
+         for i, c in enumerate(N_SPLIT_CASES)])
+def test_decode_n_split(L, bh, n_sm, ctas, want):
+    assert td.decode_n_split(L, bh, n_sm, ctas) == want
+    if ctas == 2:                   # the default: two CTAs per SM
+        assert td.decode_n_split(L, bh, n_sm) == want
 
 
 def _live_slots(L, pos):
@@ -307,32 +324,60 @@ def _split_then_merge(q, k, v, pos, n_split, ks=None, vs=None):
     return (acc / l.clamp_min(1e-30)).float().reshape(b, h, 1, hd)
 
 
-# (name, L, pos, n_split, int8): the first slot, a tile less one, one
-# tile, a tile and a slot, the last slot, and a wrapped ring; three
-# splits leave most of them empty at short positions
+# the HD256 generation read's split count (b 8, one KV head, 132 SMs,
+# bf16 queries at hd 256): its partition, at b 1 here
+HD256_SPLITS = td.decode_n_split(3200, 8, 132,
+                                 td.ctas_per_sm(torch.bfloat16, 256))
+GQA4_HD64 = (2, 8, 2, 64)           # (b, h, h_kv, hd)
+GQA8_HD256 = (1, 8, 1, 256)         # Gemma-class: 8 query heads, 1 KV head
+
+# (name, L, pos, n_split, int8, (b, h, h_kv, hd), bf16): the first slot,
+# a tile less one, one tile, a tile and a slot, the last slot, and a
+# wrapped ring; three splits leave most of them empty at short
+# positions; then the HD256 read's partition (2-3 tiles a split at pos
+# 2048, most splits empty at pos 95) in f32, bf16 and int8
 MERGE_CASES = [
-    ("pos0", 640, 0, 3, False),
-    ("pos63", 640, 63, 3, False),
-    ("pos64", 640, 64, 3, False),
-    ("pos65", 640, 65, 3, False),
-    ("pos_last", 640, 639, 3, False),
-    ("pos_last_int8", 640, 639, 4, True),
-    ("ring_wrapped", 256, 1000, 4, False),
-    ("one_split_per_tile", 256, 200, 4, False),
+    ("pos0", 640, 0, 3, False, GQA4_HD64, False),
+    ("pos63", 640, 63, 3, False, GQA4_HD64, False),
+    ("pos64", 640, 64, 3, False, GQA4_HD64, False),
+    ("pos65", 640, 65, 3, False, GQA4_HD64, False),
+    ("pos_last", 640, 639, 3, False, GQA4_HD64, False),
+    ("pos_last_int8", 640, 639, 4, True, GQA4_HD64, False),
+    ("ring_wrapped", 256, 1000, 4, False, GQA4_HD64, False),
+    ("one_split_per_tile", 256, 200, 4, False, GQA4_HD64, False),
+    ("hd256_gqa8_pos2048", 3200, 2048, HD256_SPLITS, False, GQA8_HD256,
+     False),
+    ("hd256_gqa8_pos95", 3200, 95, HD256_SPLITS, False, GQA8_HD256, False),
+    ("hd256_gqa8_pos2048_bf16", 3200, 2048, HD256_SPLITS, False, GQA8_HD256,
+     True),
+    ("hd256_gqa8_pos2048_int8", 3200, 2048, HD256_SPLITS, True, GQA8_HD256,
+     False),
 ]
 
 
-@pytest.mark.parametrize("name,L,pos,n_split,int8", MERGE_CASES,
+@pytest.mark.parametrize("name,L,pos,n_split,int8,shape,bf16", MERGE_CASES,
                          ids=[c[0] for c in MERGE_CASES])
-def test_split_then_merge_matches_pallas_kernel(name, L, pos, n_split, int8):
-    b, h, h_kv, hd = 2, 8, 2, 64
+def test_split_then_merge_matches_pallas_kernel(name, L, pos, n_split, int8,
+                                                shape, bf16):
+    b, h, h_kv, hd = shape
     arrays = _inputs(b, h, h_kv, L, hd, int8, seed=3)
+    if bf16:
+        # bf16 numbers, held in f32 by the split model, fed to the Pallas
+        # kernel in bf16: TOL_BF16 as for the bf16 queries above
+        arrays = [a if a is None or a.dtype == np.int8 else np.array(
+            jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+            for a in arrays]
     q, k, v, ks, vs = _torch(*arrays)
     got = _split_then_merge(q, k, v, pos, n_split, ks, vs)
     jq, jk, jv, jks, jvs = _jax(*arrays)
-    kernel = jd.flash_decode_attention(jq, jk, jv, jnp.int32(pos), jks, jvs,
-                                       interpret=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), **TOL)
+    if bf16:
+        jq, jk, jv = (x.astype(jnp.bfloat16) for x in (jq, jk, jv))
+    kernel = np.asarray(jd.flash_decode_attention(
+        jq, jk, jv, jnp.int32(pos), jks, jvs, interpret=True).astype(
+            jnp.float32))
+    tol = (dict(rtol=0, atol=TOL_BF16 * np.abs(kernel).max()) if bf16
+           else TOL)
+    np.testing.assert_allclose(got.numpy(), kernel, **tol)
     np.testing.assert_allclose(
         got.numpy(), td.flash_decode_attention(q, k, v, pos, ks, vs).numpy(),
         **TOL)

@@ -45,16 +45,25 @@ NEW_MODULES = ("workloads/data.py", "workloads/utils/checkpoint.py",
                "entry.py")
 
 
+# the port's scripts outside its package: the card's smoke run, and the
+# tools that import its phases (phase 28's check against faults, B5's
+# split counts at head dim 256)
+PORT_SCRIPTS = ("chip_smoke.py", "tools/pp_fault_reading.py",
+                "tools/decode_split_sweep.py")
+
+
 def _port_files():
     files = sorted((REPO / "tpu_dra_driver_torch").rglob("*.py"))
     assert len(files) >= 10
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / rel for rel in PORT_SCRIPTS]
 
 
 def test_the_walk_holds_the_new_modules():
     walked = set(_port_files())
     for rel in NEW_MODULES:
         assert REPO / "tpu_dra_driver_torch" / rel in walked
+    for rel in PORT_SCRIPTS:
+        assert (REPO / rel).is_file() and REPO / rel in walked
 
 
 def _imports(tree):

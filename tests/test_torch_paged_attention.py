@@ -25,7 +25,7 @@ TOL = {np.float32: dict(rtol=1e-5, atol=1e-5),
 
 
 def _case(lens, seed=0, garbage=True, block_t=BLOCK_T,
-          max_blocks=MAX_BLOCKS, n_blocks=N_BLOCKS, h_kv=H_KV, hd=HD):
+          max_blocks=MAX_BLOCKS, n_blocks=N_BLOCKS, h_kv=H_KV, hd=HD, h=H):
     """Random pools with each row's live blocks at shuffled physical ids
     (block 0 stays the null block) and, when ``garbage``, table entries
     past the live range that are not valid block ids."""
@@ -33,7 +33,7 @@ def _case(lens, seed=0, garbage=True, block_t=BLOCK_T,
     pool_k = rng.standard_normal((n_blocks, h_kv, block_t, hd)).astype(
         np.float32)
     pool_v = rng.standard_normal(pool_k.shape).astype(np.float32)
-    q = rng.standard_normal((B, H, 1, hd)).astype(np.float32)
+    q = rng.standard_normal((B, h, 1, hd)).astype(np.float32)
     phys = iter(rng.permutation(np.arange(1, n_blocks)))
     table = np.zeros((B, max_blocks), np.int32)
     for i, n in enumerate(lens):
@@ -93,20 +93,38 @@ def test_kernel_path_matches_pallas_kernel_bf16():
 # one token into a chunk (65, 129), rows of exactly one or two chunks (64,
 # 128), chunks spanning several blocks (block_t 8 and 16) and blocks
 # spanning several chunks (block_t 128); the walk is the longest row's
-# blocks rounded up to a power of two, as the engine's bucket
-@pytest.mark.parametrize("block_t,lens,dtype", [
-    (8, (65, 64, 0, 1), torch.float32),
-    (8, (129, 128, 63, 7), torch.float32),
-    (16, (65, 64, 17, 129), torch.float32),
-    (16, (65, 1, 0, 64), torch.bfloat16),
-    (128, (65, 64, 0, 200), torch.float32),
-])
-def test_split_edges_match_pallas_kernel(block_t, lens, dtype):
+# blocks rounded up to a power of two, as the engine's bucket. At head
+# dim 256 in bf16 (8 query heads over one KV head) the tensor-core
+# kernel's chunks of 32 tokens: rows ending one token into a chunk (33,
+# 97), of exactly one chunk (32), a token short of one (31), and four
+# 8-token blocks to a chunk
+GQA4 = dict(h_kv=H_KV, hd=HD, h=H)
+GQA8_HD256 = dict(h_kv=1, hd=256, h=8)
+
+
+EDGE_CASES = [
+    (8, (65, 64, 0, 1), torch.float32, GQA4),
+    (8, (129, 128, 63, 7), torch.float32, GQA4),
+    (16, (65, 64, 17, 129), torch.float32, GQA4),
+    (16, (65, 1, 0, 64), torch.bfloat16, GQA4),
+    (128, (65, 64, 0, 200), torch.float32, GQA4),
+    (8, (33, 32, 0, 1), torch.bfloat16, GQA8_HD256),
+    (8, (97, 31, 9, 64), torch.bfloat16, GQA8_HD256),
+    (128, (33, 0, 129, 200), torch.bfloat16, GQA8_HD256),
+]
+
+
+@pytest.mark.parametrize(
+    "block_t,lens,dtype,shape", EDGE_CASES,
+    ids=[f"{c[0]}-lens{i}-dtype{i}" + ("-hd256" if c[3] is GQA8_HD256
+                                        else "")
+         for i, c in enumerate(EDGE_CASES)])
+def test_split_edges_match_pallas_kernel(block_t, lens, dtype, shape):
     live = -(-max(lens) // block_t)
     n_live = 1 << (live - 1).bit_length()
     case = _case(lens, seed=block_t + len(lens), block_t=block_t,
                  max_blocks=n_live + 2,
-                 n_blocks=sum(-(-n // block_t) for n in lens) + 1)
+                 n_blocks=sum(-(-n // block_t) for n in lens) + 1, **shape)
     jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     got = _port(*case, n_live, dtype=dtype)
     want = _jax_kernel(*case, n_live, dtype=jdtype)
@@ -138,9 +156,18 @@ def test_split_covers_the_walk_in_chunks():
     assert tpa._n_split(9, 8) == 2
     assert tpa._n_split(5, 16) == 2
     assert tpa._n_split(1, 128) == 2           # two chunks share a block
-    # the wrapper's chunk is the kernel's
+    # bf16 takes the tensor-core kernel's chunks of 32, f32 the FMA
+    # kernel's of 64: the serving reads (hd 128, and hd 256 over one KV
+    # head) walk 8 blocks of 128 in 32 chunks
+    assert tpa._chunk(torch.bfloat16) == tpa._MMA_CHUNK == 32
+    assert tpa._chunk(torch.float32) == tpa._CHUNK
+    assert tpa._n_split(8, 128, tpa._chunk(torch.bfloat16)) == 32
+    assert tpa._n_split(1, 8, 32) == 1
+    assert tpa._n_split(5, 8, 32) == 2
+    # the wrapper's chunks are the kernel's
     src = (Path(tpa.__file__).parents[1] / "csrc" / "paged_attention.cu")
     assert f"constexpr int kChunk = {tpa._CHUNK};" in src.read_text()
+    assert f"constexpr int kMmaChunk = {tpa._MMA_CHUNK};" in src.read_text()
 
 
 def test_n_live_blocks_truncates_like_the_pallas_kernel():

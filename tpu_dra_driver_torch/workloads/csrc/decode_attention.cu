@@ -33,13 +33,14 @@
 //
 // Design.
 // - Grid (n_split, h_kv, b * n_pass) from L, b * h_kv and the SM count
-//   only, never from pos (about two CTAs per SM), so a launch can be
-//   captured in a CUDA graph and replayed at any position. Each CTA
-//   reads pos itself (from the device when `pos_dev` is given), takes
-//   n_live = min(pos + 1, L), and covers a balanced run of whole 64-slot
-//   tiles of the live range (`split_tiles`, the partition that
-//   `decode_partition` in ops/decode_attention.py mirrors). A CTA whose
-//   run is empty writes the neutral state (m = -1e30, l = 0, acc = 0).
+//   only, never from pos (about two CTAs per SM, one for bf16 queries
+//   past hd 128), so a launch can be captured in a CUDA graph and
+//   replayed at any position. Each CTA reads pos itself (from the device
+//   when `pos_dev` is given), takes n_live = min(pos + 1, L), and covers
+//   a balanced run of whole 64-slot tiles of the live range
+//   (`split_tiles`, the partition that `decode_partition` in
+//   ops/decode_attention.py mirrors). A CTA whose run is empty writes the
+//   neutral state (m = -1e30, l = 0, acc = 0).
 // - One producer thread streams its run's K and V tiles (and their
 //   scales) with 1-D bulk asynchronous copies into a ring of 1-4 stages
 //   in shared memory, guarded by mbarriers; a run of slots of one (seq,
@@ -50,13 +51,17 @@
 //   whole walk; the only block-wide barriers per tile are the ring
 //   slot's mbarriers. Rows of larger GQA groups are split over the
 //   warps and, past 4 warps' worth, over passes of the grid's z axis.
-// - bf16 queries (head dims up to 128, the generation path) take the
+// - bf16 queries (over bf16 or int8 caches, every head dim) take the
 //   tensor-core kernel: mma.sync m16n8k16 with the GQA group on the
-//   narrow side, S^T = K Q^T and O^T += V^T P^T (see its note). A
-//   fragment's two slots of one head dim come from two rows 256 bytes
-//   apart, which the unpadded ring puts in the same banks: those loads
-//   conflict four ways, which the ring's traffic affords.
-// - f32 queries and wider heads take the FMA kernel: each lane owns one
+//   narrow side, S^T = K Q^T and O^T += V^T P^T (mma_decode.cuh). Up to
+//   hd 128 three CTAs share an SM, each with a ring of about 70 KiB.
+//   At 256 (Gemma-class heads: a GQA group of 8, the n8 side exactly) a
+//   64-slot K+V tile is 64 KiB and a thread holds 64 f32 of O^T, so one
+//   CTA holds an SM with a ring of three stages (192 KiB; int8 four),
+//   and `decode_n_split` plans one CTA per SM: each split's 2-3 tiles
+//   are in flight at once, where at two CTAs per SM a split held one tile
+//   and no copy overlapped any compute.
+// - f32 queries take the FMA kernel: each lane owns one
 //   16-byte piece of a cache row, LPS lanes a slot, so a warp reads
 //   whole rows without bank conflicts; scores reduce by shuffles inside
 //   a slot's lanes, which then all hold P for P.V. Exact in f32, as the
@@ -76,20 +81,24 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_decode.cuh"
+
 namespace {
+
+using namespace mma_decode;  // kRound, kNegInf, kMmaRows, the helpers
 
 constexpr int kConsumerWarps = 4;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;      // + the producer warp
 constexpr int kTile = 64;                      // slots per ring stage
-constexpr int kRound = 16;                     // slots per softmax round
 constexpr int kMaxStages = 4;
 // ring bytes aimed for: two CTAs of the FMA kernel share an SM, three
-// of the tensor-core kernel
+// of the tensor-core kernel up to hd 128; past 128 one CTA of it holds
+// an SM (3 stages of bf16 tiles, 4 of int8), as `decode_n_split` plans
 constexpr size_t kFmaRingBytes = 100 * 1024;
 constexpr size_t kMmaRingBytes = 70 * 1024;
+constexpr size_t kMmaWideRingBytes = 192 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr float kNegInf = -1e30f;
 constexpr int kMergeWarps = 4;
 constexpr int kMaxDevices = 64;   // per-device flags of the launch code
 
@@ -153,67 +162,6 @@ template <> struct Piece<int8_t> {
         o[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xffu);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces `bytes` of bulk-copy traffic
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a
-// wait of over a second traps, so a broken pipeline fails the launch
-// instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t since = 0;
-  for (uint32_t tries = 1; !done; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && tries % 4096 == 0) {
-      if (since == 0) since = global_ns();
-      else if (global_ns() - since > 1000000000ull) __trap();
-    }
-  }
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
-// memory into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // the consumer warps only (the producer warp may have left)
 __device__ __forceinline__ void consumers_sync() {
@@ -398,7 +346,7 @@ template <typename TC, int LPS, int PPL> struct Layout {
   static_assert(SPS * STEPS == kRound, "a round is 16 slots");
 };
 
-// The FMA split kernel, for f32 queries and head dims past 128: grid
+// The FMA split kernel, for f32 queries: grid
 // (n_split, h_kv, b * n_pass), CTA (split, head, seq * n_pass + pass).
 template <typename TQ, typename TC, int LPS, int PPL>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -615,91 +563,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------
-// The tensor-core split kernel, for bf16 queries and head dims up to
-// 128 (the generation path): mma.sync m16n8k16 (bf16 in, f32 out) on
-// fragments loaded straight from the ring. The scores are taken
-// transposed, S^T = K Q^T, with 16 slots as M and the warp's 8 query
-// rows as N (rows past the GQA group are 0), and the output too, O^T +=
-// V^T P^T, with 16 head dims as M: the few query rows sit in the narrow
-// N side, so an accumulator holds half of what Q K^T would, and each
-// slot's exp is taken once per query row.
-//
-// Fragments without a transpose through shared memory: the dot products
-// may sum the head dims in any order, so k index (2t + e + 8 g) of
-// k-step (2c + h) is head dim 32 c + 8 t + 4 h + 2 g + e (t = lane % 4),
-// and lane t reads 16 contiguous bytes of a K row (4 bf16 pairs, or 8
-// int8 codes widened exactly) for two k-steps; the q fragments hold the
-// same dims. P^T comes from S^T's accumulators by one movmatrix.trans
-// for each 8 slots. V^T pairs two slots of one head dim: rows g and
-// g + 8 of m-tile j of head-dim group G are dims 64 G + 8 g + 2 j and
-// + 1, so a lane reads 16 contiguous bytes of each of its four slots' V
-// rows and packs pairs with one byte permute each. The output's dim
-// order is undone when the accumulators are written out.
-constexpr int kMmaRows = 8;      // query rows: the n8 side of a fragment
-
-// 8 consecutive cache elements in shared memory as 4 bf16 pairs
-template <typename TC> struct Pairs8;
-template <> struct Pairs8<__nv_bfloat16> {
-  __device__ __forceinline__ static void load(const unsigned char* p,
-                                              uint32_t (&w)[4]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
-  }
-};
-// int8 codes widen exactly: byte c ^ 0x80 (= c + 128) goes into the
-// mantissa of 2^23, and 2^23 + 128 is taken off in f32 (a byte permute
-// and an add per code, where a conversion instruction runs at a quarter
-// of the rate)
-template <> struct Pairs8<int8_t> {
-  __device__ __forceinline__ static float code(uint32_t biased, int i) {
-    const uint32_t sel = 0x7650u | (uint32_t)i;
-    return __uint_as_float(__byte_perm(biased, 0x4B000000u, sel)) -
-           8388736.f;
-  }
-  __device__ __forceinline__ static void load(const unsigned char* p,
-                                              uint32_t (&w)[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const uint32_t x[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 b = __floats2bfloat162_rn(
-          code(x[i / 2], 2 * (i % 2)), code(x[i / 2], 2 * (i % 2) + 1));
-      w[i] = *reinterpret_cast<const uint32_t*>(&b);
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&b);
-}
-
-// the transpose of an 8 x 8 bf16 matrix held a row per lane quad
-__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
-               : "=r"(y)
-               : "r"(x));
-  return y;
-}
-
-// d += a b, m16n8k16, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
+// The tensor-core split kernel, for bf16 queries (over bf16 or int8
+// caches): each consumer warp walks 16-slot rounds of the ring's tiles
+// with mma_decode's `Walk` (S^T = K Q^T, O^T += V^T P^T on mma.sync
+// m16n8k16, the GQA group on the n8 side; see mma_decode.cuh). HD is 64,
+// 128 or 256, the head dims it takes (below HD read as 0). At 256 the
+// O^T accumulators are 64 f32 and q's fragments 32 registers a thread, so
+// its instantiations take one CTA per SM (launch bounds) and, with it,
+// a ring of up to 192 KiB: three 64 KiB stages of bf16 K/V tiles, so that
+// a split's 2-3 tiles are all in flight at once.
 template <typename TC, int HD>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 3)
     flash_decode_split_mma_kernel(const __grid_constant__ Args a) {
-  constexpr int kChunks = HD / 32;   // 32-dim chunks: two k-steps each
-  constexpr int kGroups = HD / 64;   // 64-dim groups: 4 m-tiles each
-  constexpr int kEl = (int)sizeof(TC);
   const Work w = plan(a, kMmaRows);
   if (w.tile0 >= w.tile1) {
     write_empty<__nv_bfloat16>(a, w);
@@ -713,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   const bool quantized = a.ks != nullptr;
   const int hd = a.hd;
   const int stride = hd + 2;
-  const int row_bytes = hd * kEl;
+  const int row_bytes = hd * (int)sizeof(TC);
   const int tile_bytes = kTile * row_bytes;
   extern __shared__ __align__(128) unsigned char smem[];
   // [stages] x (K tile, V tile), [stages] x (K, V scales), the barriers;
@@ -749,30 +624,13 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int sg = warp - rg * w.sg_n;
   const int wrows = max(0, min(kMmaRows, w.rows - rg * kMmaRows));
 
-  // q fragments (B of S^T): row g, dims 32 c + 8 t + [0, 8) as 4 pairs
-  uint32_t qf[kChunks][4];
-  {
-    const uint16_t* qr = static_cast<const uint16_t*>(a.q) +
-                         (w.bh * a.rep + w.row0 + rg * kMmaRows + g) * hd;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int d0 = 32 * c + 8 * t;
-      const bool have = g < wrows && d0 < hd;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[c][i] = have ? (uint32_t)qr[d0 + 2 * i] |
-                              ((uint32_t)qr[d0 + 2 * i + 1] << 16)
-                        : 0u;
-    }
-  }
-  // O^T accumulators: m-tile 4 G + j holds dims 64 G + 8 g + 2 j (+ 1 in
-  // c2, c3) against query rows 2 t, 2 t + 1
-  float o[4 * kGroups][4];
-#pragma unroll
-  for (int n = 0; n < 4 * kGroups; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows 2t, 2t + 1
+  uint32_t qf[HD / 32][4];
+  load_q<HD>(qf,
+             static_cast<const uint16_t*>(a.q) +
+                 (w.bh * a.rep + w.row0 + rg * kMmaRows + g) * hd,
+             g < wrows, hd, t);
+  Walk<HD> walk;
+  walk.init();
 
   for (int it = 0; it < n_t; ++it) {
     const int s = it % a.stages;
@@ -780,95 +638,14 @@ __global__ void __launch_bounds__(kThreads, 3)
     if (wrows > 0) {
       const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
       const unsigned char* vt = kt + tile_bytes;
-      const float* kscale = scales + s * 2 * kTile;
-      const float* vscale = kscale + kTile;
+      const float* kscale = quantized ? scales + s * 2 * kTile : nullptr;
+      const float* vscale = quantized ? kscale + kTile : nullptr;
       const int live = w.slot_end - (w.tile0 + it) * kTile;  // in the tile
       for (int rd = 0; rd < w.rg_n; ++rd) {
         const int slot0 = (sg * w.rg_n + rd) * kRound;  // within the tile
         if (slot0 >= live) break;
-        const bool whole = slot0 + kRound <= live;
-        // S^T = K Q^T: slots slot0 + g (c0, c1) and slot0 + 8 + g (c2,
-        // c3) against rows 2t, 2t + 1, in two chains of k-steps (h) for
-        // a shorter latency
-        float st[4] = {0.f, 0.f, 0.f, 0.f}, st2[4] = {0.f, 0.f, 0.f, 0.f};
-        {
-          const unsigned char* k0 = kt + (slot0 + g) * row_bytes;
-          const unsigned char* k1 = k0 + 8 * row_bytes;
-#pragma unroll
-          for (int c = 0; c < kChunks; ++c) {
-            uint32_t kw[4] = {0u, 0u, 0u, 0u}, kx[4] = {0u, 0u, 0u, 0u};
-            if (32 * c + 8 * t < hd) {
-              Pairs8<TC>::load(k0 + (32 * c + 8 * t) * kEl, kw);
-              Pairs8<TC>::load(k1 + (32 * c + 8 * t) * kEl, kx);
-            }
-            mma_bf16(st, kw[0], kx[0], kw[1], kx[1], qf[c][0], qf[c][1]);
-            mma_bf16(st2, kw[2], kx[2], kw[3], kx[3], qf[c][2], qf[c][3]);
-          }
-        }
-        // the online update per query row (e & 1), its max over the
-        // slots of the 8 lane quads
-        float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int slot = slot0 + g + 8 * (e >> 1);
-          float x = st[e] + st2[e];
-          if (quantized) x *= kscale[slot];
-          x *= a.sm_scale;
-          st[e] = (whole || slot < live) ? x : kNegInf;
-          mx[e & 1] = fmaxf(mx[e & 1], st[e]);
-        }
-        float alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-#pragma unroll
-          for (int o2 = 4; o2 < 32; o2 <<= 1)
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o2));
-          const float m_new = fmaxf(m[r], mx[r]);
-          alpha[r] = expf(m[r] - m_new);
-          m[r] = m_new;
-          l[r] *= alpha[r];
-        }
-        // P, by select past the run (a NaN there adds nothing); l sums
-        // it unscaled, and P V takes it times the V scale in bf16
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int slot = slot0 + g + 8 * (e >> 1);
-          const bool valid = whole || slot < live;
-          p[e] = valid ? expf(st[e] - m[e & 1]) : 0.f;
-          l[e & 1] += p[e];
-          if (quantized && valid) p[e] *= vscale[slot];
-        }
-        const uint32_t pb0 = transpose8x8(pack_bf16(p[0], p[1]));
-        const uint32_t pb1 = transpose8x8(pack_bf16(p[2], p[3]));
-#pragma unroll
-        for (int n = 0; n < 4 * kGroups; ++n) {
-          o[n][0] *= alpha[0];
-          o[n][1] *= alpha[1];
-          o[n][2] *= alpha[0];
-          o[n][3] *= alpha[1];
-        }
-        // O^T += V^T P^T: the lane's slots slot0 + {2t, 2t + 1, 2t + 8,
-        // 2t + 9}, dims 64 G + 8 g + [0, 8)
-#pragma unroll
-        for (int G = 0; G < kGroups; ++G) {
-          uint32_t vw[4][4];
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const int slot = slot0 + 2 * t + (x & 1) + 8 * (x >> 1);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) vw[x][i] = 0u;
-            if (64 * G + 8 * g < hd && (whole || slot < live))
-              Pairs8<TC>::load(vt + slot * row_bytes + (64 * G + 8 * g) * kEl,
-                               vw[x]);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_bf16(o[4 * G + j], __byte_perm(vw[0][j], vw[1][j], 0x5410u),
-                     __byte_perm(vw[0][j], vw[1][j], 0x7632u),
-                     __byte_perm(vw[2][j], vw[3][j], 0x5410u),
-                     __byte_perm(vw[2][j], vw[3][j], 0x7632u), pb0, pb1);
-        }
+        walk.template round16<TC>(qf, kt, vt, row_bytes, slot0, live, kscale,
+                                vscale, a.sm_scale, hd, g, t);
       }
     }
     // the ring slot goes back to the producer
@@ -876,35 +653,12 @@ __global__ void __launch_bounds__(kThreads, 3)
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  // l over the 8 lane quads (m is theirs already); once every warp is
-  // done with the ring, the warps' states go where the ring was
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int o2 = 4; o2 < 32; o2 <<= 1)
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o2);
+  // once every warp is done with the ring, the warps' states go where
+  // the ring was
+  walk.finish();
   consumers_sync();
   float* mrg = reinterpret_cast<float*>(smem);
-  float* mine = mrg + warp * kMmaRows * stride;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int r = 2 * t + e;
-    if (r >= wrows) continue;
-    float* row = mine + r * stride;
-#pragma unroll
-    for (int G = 0; G < kGroups; ++G)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const int d = 64 * G + 8 * g + 2 * j + hi;
-          if (d < hd) row[d] = o[4 * G + j][2 * hi + e];
-        }
-    if (g == 0) {
-      row[hd] = m[e];
-      row[hd + 1] = l[e];
-    }
-  }
+  walk.store(mrg + warp * kMmaRows * stride, wrows, hd, stride, g, t);
   consumers_sync();
   merge_warps<__nv_bfloat16>(a, w, mrg, kMmaRows);
 }
@@ -1021,13 +775,15 @@ template <typename TC, int HD>
 int launch_mma(const Args& a, int b, int n_split, cudaStream_t stream) {
   static bool raised[kMaxDevices] = {};
   return launch_split<TC>(flash_decode_split_mma_kernel<TC, HD>, raised, a,
-                          b, n_split, kMmaRows, true, kMmaRingBytes, stream);
+                          b, n_split, kMmaRows, true,
+                          HD > 128 ? kMmaWideRingBytes : kMmaRingBytes,
+                          stream);
 }
 
-// The kernel for q's dtype and hd: bf16 queries up to hd 128 take the
-// tensor-core kernel; f32 queries and wider heads the FMA kernel, whose
-// LPS is the 16-byte pieces of a row rounded up to a power of two (2 to
-// 32), two pieces a lane past 32.
+// The kernel for q's dtype and hd: bf16 queries take the tensor-core
+// kernel at every head dim (up to 256, checked by `launch`); f32 queries
+// the FMA kernel, whose LPS is the 16-byte pieces of a row rounded up to
+// a power of two (2 to 32), two pieces a lane past 32.
 template <typename TQ, typename TC>
 int launch_layout(const Args& a, int b, int n_split, cudaStream_t stream) {
   const int hd = a.hd;
@@ -1035,10 +791,7 @@ int launch_layout(const Args& a, int b, int n_split, cudaStream_t stream) {
   if constexpr (sizeof(TQ) == 2) {
     if (hd <= 64) return launch_mma<TC, 64>(a, b, n_split, stream);
     if (hd <= 128) return launch_mma<TC, 128>(a, b, n_split, stream);
-    if constexpr (sizeof(TC) == 2)
-      return launch_fma<TQ, TC, 32, 1>(a, b, n_split, stream);
-    else
-      return launch_fma<TQ, TC, 16, 1>(a, b, n_split, stream);
+    return launch_mma<TC, 256>(a, b, n_split, stream);
   } else {
     if constexpr (sizeof(TC) == 4) {
       if (pieces > 32) return launch_fma<TQ, TC, 32, 2>(a, b, n_split, stream);

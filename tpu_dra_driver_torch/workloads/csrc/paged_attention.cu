@@ -29,6 +29,12 @@
 // dependent reads of lens, table and K/V, the merge), so the design is
 // about putting every byte in flight at once on many SMs.
 //
+// Two kernels, by the dtype: f32 takes the FMA kernel, whose design
+// follows, in chunks of 64 tokens; bf16 (the serving cell, and
+// Gemma-class heads: a GQA group of 8 over one KV head of 256) takes the
+// tensor-core kernel further down in chunks of 32 (see its note), with
+// its own merge.
+//
 // Design (flash-decoding over the block table). The TPU walked a
 // sequence's blocks as a sequential grid axis; here each (sequence, KV
 // head)'s live range is cut into chunks of kChunk = 64 tokens, one CTA
@@ -60,11 +66,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_decode.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;                     // tokens per CTA
+// tokens per CTA of the tensor-core kernel (bf16): a 16-slot round for
+// each of its warps
+constexpr int kMmaChunk = 32;
+constexpr int kMmaWarps = kMmaChunk / mma_decode::kRound;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMergeWarps = 4;                 // rows per CTA of its merge
 constexpr int kTokLanes = kThreads / kChunk;   // lanes per score
 constexpr int kRowBlock = 8;                   // q rows per register block
 constexpr int kPad = 16;                       // bytes of padding per row
@@ -72,22 +86,15 @@ constexpr size_t kMaxSmem = 227 * 1024;
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;                // per-device flags of launch()
 
+// the FMA kernel's element types (f32: bf16 takes the tensor-core kernel)
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
 // x rounded to T's precision, back in f32
@@ -103,20 +110,6 @@ template <> struct Piece<float> {
                                               float* o) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-};
-template <> struct Piece<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const unsigned char* p,
-                                              float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
   }
 };
 
@@ -381,37 +374,232 @@ __global__ void __launch_bounds__(kThreads) paged_decode_merge_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// The tensor-core split kernel, for bf16: HD 128 up to head dim 128 (the
+// serving cell: a GQA group of 2), HD 256 past it (Gemma-class heads: a
+// group of 8 over one KV head). At 256 the FMA kernel above does 8x the
+// work per CTA of the serving cell's, and its grid (h_kv, b, n_split)
+// holds few CTAs at h_kv 1. Here each CTA takes kMmaChunk = 32 tokens of
+// a row's live range (twice the CTAs of 64-token chunks) and two warps,
+// each a 16-slot round of mma_decode's `Walk`: S^T = K Q^T and O^T +=
+// V^T P^T on mma.sync m16n8k16 with the GQA group on the n8 side, query
+// rows in groups of 8.
+// A pool block of one KV head is contiguous ([n_blocks, h_kv, block_t,
+// hd]), so one thread copies the chunk's K and V rows into shared memory
+// with one 1-D bulk copy per block it touches and per K/V, completing on
+// one mbarrier, while the warps load their q fragments; rows past the
+// row's end are never copied and are excluded by select. The warps merge
+// their (m, l, acc) through shared memory into the chunk's partial state,
+// or the output where one chunk covers the row.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) paged_decode_split_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ pool_k,
+    const __nv_bfloat16* __restrict__ pool_v, const int* __restrict__ table,
+    const int* __restrict__ lens, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part, int h_kv, int rep, int hd, int block_t,
+    int max_blocks, int n_live_blocks, float sm_scale) {
+  using namespace mma_decode;
+  const int head = blockIdx.x;
+  const int seq = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t row0 = ((int64_t)seq * h_kv + head) * rep;
+  const int c0 = split * kMmaChunk;
+  const int* trow = table + (int64_t)seq * max_blocks;
+  // the chunk's first table entry is read beside lens: the column is
+  // below n_live_blocks <= max_blocks, though only followed when live
+  const int blk0 = tid == 0 ? trow[c0 / block_t] : 0;
+  const int len = live_len(lens, seq, n_live_blocks, block_t);
+  if (c0 >= len) {
+    if (split == 0)                 // a length-0 row gives 0
+      for (int i = tid; i < rep * hd; i += kMmaThreads)
+        out[row0 * hd + i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int nt = min(kMmaChunk, len - c0);
+  const bool whole = len <= kMmaChunk;
+  const int row_bytes = hd * (int)sizeof(__nv_bfloat16);
+  const int stride = hd + 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // [kMmaChunk] K rows, [kMmaChunk] V rows, the warps' states
+  // [kMmaWarps][8][hd + 2] f32, the barrier
+  unsigned char* k_s = smem;
+  unsigned char* v_s = smem + kMmaChunk * row_bytes;
+  float* mrg = reinterpret_cast<float*>(smem + 2 * kMmaChunk * row_bytes);
+  const uint32_t bar = smem_addr(mrg + kMmaWarps * kMmaRows * stride);
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar, (uint32_t)(2 * nt * row_bytes));
+    const unsigned char* kb = reinterpret_cast<const unsigned char*>(pool_k);
+    const unsigned char* vb = reinterpret_cast<const unsigned char*>(pool_v);
+    int blk = blk0;
+    for (int tok = c0; tok < c0 + nt;) {
+      const int off = tok % block_t;
+      const int run = min(block_t - off, c0 + nt - tok);
+      const int64_t src = (((int64_t)blk * h_kv + head) * block_t + off) *
+                          row_bytes;
+      const int dst = (tok - c0) * row_bytes;
+      bulk_load(smem_addr(k_s + dst), kb + src, (uint32_t)(run * row_bytes),
+                bar);
+      bulk_load(smem_addr(v_s + dst), vb + src, (uint32_t)(run * row_bytes),
+                bar);
+      tok += run;
+      if (tok < c0 + nt) blk = trow[tok / block_t];
+    }
+  }
+  // every thread waits on the barrier only once it is initialized
+  __syncthreads();
+
+  const int slot0 = warp * kRound;
+  const uint16_t* qb = reinterpret_cast<const uint16_t*>(q);
+  for (int r0 = 0; r0 < rep; r0 += kMmaRows) {
+    const int rows = min(kMmaRows, rep - r0);
+    uint32_t qf[HD / 32][4];
+    load_q<HD>(qf, qb + (row0 + r0 + g) * hd, g < rows, hd, t);
+    Walk<HD> walk;
+    walk.init();
+    if (r0 == 0) mbar_wait(bar, 0);
+    if (slot0 < nt)
+      walk.template round16<__nv_bfloat16>(qf, k_s, v_s, row_bytes, slot0,
+                                           nt, nullptr, nullptr, sm_scale,
+                                           hd, g, t);
+    walk.finish();
+    walk.store(mrg + warp * kMmaRows * stride, rows, hd, stride, g, t);
+    __syncthreads();
+    // the warps' states rescaled to their common max: the output, or the
+    // chunk's partial (acc, m, l)
+    for (int i = tid; i < rows * hd; i += kMmaThreads) {
+      const int r = i / hd;
+      const int d = i - r * hd;
+      float mm = kNegInf;
+#pragma unroll
+      for (int x = 0; x < kMmaWarps; ++x)
+        mm = fmaxf(mm, mrg[(x * kMmaRows + r) * stride + hd]);
+      float acc = 0.f, l = 0.f;
+#pragma unroll
+      for (int x = 0; x < kMmaWarps; ++x) {
+        const float* ps = mrg + (x * kMmaRows + r) * stride;
+        const float wt = expf(ps[hd] - mm);
+        acc += ps[d] * wt;
+        l += ps[hd + 1] * wt;
+      }
+      const int64_t row = row0 + r0 + r;
+      if (whole) {
+        out[row * hd + d] = __float2bfloat16(__fdividef(acc, fmaxf(l, 1e-30f)));
+      } else {
+        float* o = part + (row * n_split + split) * stride;
+        o[d] = acc;
+        if (d == 0) {
+          o[hd] = mm;
+          o[hd + 1] = l;
+        }
+      }
+    }
+    __syncthreads();                // before the next group's states
+  }
+}
+
+// grid ceil(b * h / 4), 4 warps: warp w merges query row (block * 4 + w)
+// over its row's live chunks of kMmaChunk tokens (rows that one chunk
+// covers, or of length 0, were written by the split kernel), lane d of
+// the warp head dims d + 32 i (i < DIMS). The chunks' states come in
+// groups of 8 whose loads are all issued before any is used, folded in
+// by the online rescaling, each weight exp(m_s - m) taken once per chunk.
+template <int DIMS>
+__global__ void __launch_bounds__(32 * kMergeWarps)
+    paged_decode_merge_rows_kernel(const float* __restrict__ part,
+                                   const int* __restrict__ lens,
+                                   __nv_bfloat16* __restrict__ out,
+                                   int n_rows, int h, int hd, int block_t,
+                                   int n_live_blocks, int n_split) {
+  constexpr int kGroup = 8;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int len = live_len(lens, (int)(row / h), n_live_blocks, block_t);
+  const int live = (len + kMmaChunk - 1) / kMmaChunk;
+  if (live <= 1) return;
+  const int stride = hd + 2;
+  const float* base = part + row * n_split * stride;
+  float acc[DIMS];
+#pragma unroll
+  for (int i = 0; i < DIMS; ++i) acc[i] = 0.f;
+  float m = kNegInf, l = 0.f;
+  for (int s0 = 0; s0 < live; s0 += kGroup) {
+    float ms[kGroup], ls[kGroup], av[kGroup][DIMS];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const bool have = s0 + j < live;
+      const float* ps = base + (s0 + j) * stride;
+      ms[j] = have ? ps[hd] : kNegInf;
+      ls[j] = have ? ps[hd + 1] : 0.f;
+#pragma unroll
+      for (int i = 0; i < DIMS; ++i) {
+        const int d = lane + 32 * i;
+        av[j][i] = have && d < hd ? ps[d] : 0.f;
+      }
+    }
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) m_new = fmaxf(m_new, ms[j]);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < DIMS; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const float wt = expf(ms[j] - m_new);
+      l = fmaf(ls[j], wt, l);
+#pragma unroll
+      for (int i = 0; i < DIMS; ++i) acc[i] = fmaf(av[j][i], wt, acc[i]);
+    }
+    m = m_new;
+  }
+  l = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < DIMS; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) out[row * hd + d] = __float2bfloat16(__fdividef(acc[i], l));
+  }
+}
+
+// The shared-memory limit of `kernel` is raised once per device, to the
+// most any launch can ask for, at the first launch that needs it: a
+// launch captured into a CUDA graph then makes no call but the launch
+// itself. `raised` holds the kernel's own flags, one per device.
+template <typename K>
+cudaError_t allow_smem(K* kernel, bool* raised, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kMaxDevices && raised[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kMaxSmem);
+  if (e == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
+  return e;
+}
+
 template <typename T>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* table, const void* lens, void* out, void* part, int b,
            int h, int h_kv, int hd, int block_t, int max_blocks,
            int n_live_blocks, int n_split, cudaStream_t stream) {
   const int rep = h / h_kv;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(pool_k) |
-                         reinterpret_cast<uintptr_t>(pool_v)) % 16) == 0;
-  if (!aligned || (hd * sizeof(T)) % 16 != 0 ||
-      n_split != (n_live_blocks * block_t + kChunk - 1) / kChunk ||
-      (n_split > 1 && part == nullptr))
+  if (n_split != (n_live_blocks * block_t + kChunk - 1) / kChunk)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(rep, hd);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  // the shared-memory limit is raised once per device, to the most any
-  // launch can ask for, at the first launch that needs it: a launch
-  // captured into a CUDA graph then makes no call but the launch itself
   static bool raised[kMaxDevices] = {};
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (!(dev < kMaxDevices && raised[dev])) {
-      e = cudaFuncSetAttribute(paged_decode_split_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxSmem);
-      if (e != cudaSuccess) return (int)e;
-      if (dev < kMaxDevices) raised[dev] = true;
-    }
-  }
+  cudaError_t e = allow_smem(paged_decode_split_kernel<T>, raised, smem);
+  if (e != cudaSuccess) return (int)e;
   paged_decode_split_kernel<T><<<dim3(h_kv, b, n_split), kThreads, smem,
                                  stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool_k),
@@ -419,7 +607,7 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
       static_cast<const int*>(lens), static_cast<T*>(out),
       static_cast<float*>(part), h_kv, rep, hd, block_t, max_blocks,
       n_live_blocks, 1.0f / sqrtf((float)hd));
-  const cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
   paged_decode_merge_kernel<T><<<dim3(h_kv, b), kThreads, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(lens),
@@ -427,26 +615,71 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   return (int)cudaGetLastError();
 }
 
+// the tensor-core kernel's route: bf16, chunks of kMmaChunk tokens
+template <int HD>
+int launch_mma(const void* q, const void* pool_k, const void* pool_v,
+               const void* table, const void* lens, void* out, void* part,
+               int b, int h, int h_kv, int hd, int block_t, int max_blocks,
+               int n_live_blocks, int n_split, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if (n_split != (n_live_blocks * block_t + kMmaChunk - 1) / kMmaChunk)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)kMmaChunk * hd * sizeof(T) +
+                      (size_t)kMmaWarps * mma_decode::kMmaRows * (hd + 2) *
+                          sizeof(float) +
+                      8;                               // the barrier
+  static bool raised[kMaxDevices] = {};
+  cudaError_t e = allow_smem(paged_decode_split_mma_kernel<HD>, raised, smem);
+  if (e != cudaSuccess) return (int)e;
+  paged_decode_split_mma_kernel<HD><<<dim3(h_kv, b, n_split), kMmaThreads,
+                                      smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pool_k),
+      static_cast<const T*>(pool_v), static_cast<const int*>(table),
+      static_cast<const int*>(lens), static_cast<T*>(out),
+      static_cast<float*>(part), h_kv, h / h_kv, hd, block_t, max_blocks,
+      n_live_blocks, 1.0f / sqrtf((float)hd));
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  const int n_rows = b * h;
+  paged_decode_merge_rows_kernel<HD / 32>
+      <<<(n_rows + kMergeWarps - 1) / kMergeWarps, 32 * kMergeWarps, 0,
+         stream>>>(static_cast<const float*>(part),
+                   static_cast<const int*>(lens), static_cast<T*>(out),
+                   n_rows, h, hd, block_t, n_live_blocks, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `part` is f32 scratch [b, h,
-// n_split, hd + 2], needed when n_split > 1; n_split must be
-// ceil(n_live_blocks * block_t / 64). Returns a cudaError_t (0 =
-// success).
+// dtype: 0 = float32 (the FMA kernel, chunks of 64 tokens), 1 = bfloat16
+// (the tensor-core kernel, chunks of 32, head dims up to 256). `part` is
+// f32 scratch [b, h, n_split, hd + 2], needed when n_split > 1; n_split
+// must be ceil(n_live_blocks * block_t / chunk). Returns a cudaError_t
+// (0 = success).
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* pool_k, const void* pool_v,
     const void* table, const void* lens, void* out, void* part, int b, int h,
     int h_kv, int hd, int block_t, int max_blocks, int n_live_blocks,
     int n_split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t el = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(pool_k) |
+                         reinterpret_cast<uintptr_t>(pool_v)) % 16) == 0;
+  if (!aligned || (hd * el) % 16 != 0 || (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, pool_k, pool_v, table, lens, out, part, b, h,
                          h_kv, hd, block_t, max_blocks, n_live_blocks,
                          n_split, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pool_k, pool_v, table, lens, out, part,
-                                 b, h, h_kv, hd, block_t, max_blocks,
-                                 n_live_blocks, n_split, s);
+  if (dtype == 1 && hd <= 128)
+    return launch_mma<128>(q, pool_k, pool_v, table, lens, out, part, b, h,
+                           h_kv, hd, block_t, max_blocks, n_live_blocks,
+                           n_split, s);
+  if (dtype == 1 && hd <= 256)
+    return launch_mma<256>(q, pool_k, pool_v, table, lens, out, part, b, h,
+                           h_kv, hd, block_t, max_blocks, n_live_blocks,
+                           n_split, s);
   return (int)cudaErrorInvalidValue;
 }
 

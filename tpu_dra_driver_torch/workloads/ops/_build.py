@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/kernels/`` at the repo root, named by a hash of the source and
-the flags (so an edited source rebuilds and a stale library is never
-loaded), and loaded with :mod:`ctypes`. Nothing here runs at import.
+``build/kernels/`` at the repo root, named by a hash of the source, the
+headers of ``csrc/`` it may include (``*.cuh``) and the flags (so an
+edited source or header rebuilds and a stale library is never loaded),
+and loaded with :mod:`ctypes`. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):   # the sources' includes
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

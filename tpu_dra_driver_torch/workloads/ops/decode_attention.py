@@ -43,8 +43,11 @@ KV_BLOCK = 128
 
 # slots of K and V in one tile of the kernel's ring
 _TILE = 64
-# resident CTAs of the split kernel an SM holds
+# resident CTAs of the split kernel an SM holds; one of the tensor-core
+# kernel past head dim 128, whose ring takes most of an SM's shared
+# memory (kMmaWideRingBytes in csrc/decode_attention.cu)
 _CTAS_PER_SM = 2
+_CTAS_PER_SM_WIDE = 1
 _MAX_HEAD_DIM = 256
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,12 +69,24 @@ def decode_block_t(L: int, requested: int = 512) -> int:
     return 0
 
 
-def decode_n_split(L: int, bh: int, n_sm: int) -> int:
+def decode_n_split(L: int, bh: int, n_sm: int,
+                   ctas_per_sm: int = _CTAS_PER_SM) -> int:
     """The kernel's number of splits of each (sequence, KV head)'s live
     range: enough that ``bh`` (= b * h_kv) times it fills ``n_sm`` SMs
-    with about two CTAs each, and at most one split per 64-slot tile of
-    the cache. It depends on no position."""
-    return max(1, min(L // _TILE, _CTAS_PER_SM * n_sm // max(bh, 1)))
+    with about ``ctas_per_sm`` CTAs each (:func:`ctas_per_sm`), and at
+    most one split per 64-slot tile of the cache. It depends on no
+    position."""
+    return max(1, min(L // _TILE, ctas_per_sm * n_sm // max(bh, 1)))
+
+
+def ctas_per_sm(q_dtype: torch.dtype, hd: int) -> int:
+    """Resident CTAs per SM of the split kernel that q's dtype and the
+    head dim take: one for bf16 queries past head dim 128 (the
+    tensor-core kernel with its 192 KiB ring, so that each split holds
+    a few tiles in flight), else two."""
+    if q_dtype == torch.bfloat16 and hd > 128:
+        return _CTAS_PER_SM_WIDE
+    return _CTAS_PER_SM
 
 
 def decode_partition(L: int, n_live: int,
@@ -227,7 +242,8 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if b == 0:
         return out
     rep = h // h_kv
-    n_split = decode_n_split(L, b * h_kv, _sm_count(q.device))
+    n_split = decode_n_split(L, b * h_kv, _sm_count(q.device),
+                             ctas_per_sm(q.dtype, hd))
     part = None
     if n_split > 1:
         part = torch.empty((b * h_kv, n_split, rep, hd + 2),

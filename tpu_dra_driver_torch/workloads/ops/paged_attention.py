@@ -29,15 +29,24 @@ NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
 # tokens of a row's live range per CTA of the kernel's split (kChunk in
-# csrc/paged_attention.cu)
+# csrc/paged_attention.cu): the FMA kernel's, which f32 takes, and the
+# tensor-core kernel's (kMmaChunk), which bf16 takes
 _CHUNK = 64
+_MMA_CHUNK = 32
 
 
-def _n_split(n_live_blocks: int, block_t: int) -> int:
-    """CTAs per (sequence, KV head) of the kernel: the chunks of
-    ``_CHUNK`` tokens that cover ``n_live_blocks`` blocks. Host integers
-    only, so a launch never waits for the card."""
-    return -(-n_live_blocks * block_t // _CHUNK)
+def _chunk(dtype: torch.dtype) -> int:
+    """The kernel's chunk for q's dtype, which picks the kernel:
+    ``_MMA_CHUNK`` (the tensor-core kernel) for bf16, ``_CHUNK`` (the FMA
+    kernel) for f32."""
+    return _MMA_CHUNK if dtype == torch.bfloat16 else _CHUNK
+
+
+def _n_split(n_live_blocks: int, block_t: int, chunk: int = _CHUNK) -> int:
+    """CTAs per (sequence, KV head) of the kernel: the chunks of ``chunk``
+    tokens that cover ``n_live_blocks`` blocks. Host integers only, so a
+    launch never waits for the card."""
+    return -(-n_live_blocks * block_t // chunk)
 
 
 def init_pool(n_blocks: int, block_t: int, h_kv: int, hd: int,
@@ -212,17 +221,18 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     # tpu_dra_driver/workloads/ops/paged_attention.py. Its bound on the
     # H100 is bytes: each sequence's live K and V, read once, over
     # 3.35 TB/s (about one operation per byte). Each row's live range is
-    # split into chunks of _CHUNK tokens, one CTA each (its GQA group
+    # split into chunks of `_chunk` tokens, one CTA each (its GQA group
     # together, so every K/V byte is read once, and only live slots),
     # and a second kernel merges the chunks' partial softmax states into
-    # ``part``; see csrc/paged_attention.cu.
+    # ``part``; bf16 takes the tensor-core kernel; see
+    # csrc/paged_attention.cu.
     b, h, _, hd = q.shape
     n_blocks, h_kv, block_t, _ = pool_k.shape
     check_head_dim(hd, q.dtype)
     out = torch.empty_like(q)
     if b == 0:
         return out
-    n_split = _n_split(n_live_blocks, block_t)
+    n_split = _n_split(n_live_blocks, block_t, _chunk(q.dtype))
     part = None
     if n_split > 1:
         part = torch.empty((b, h, n_split, hd + 2), dtype=torch.float32,
