@@ -12,7 +12,11 @@ run when it fails:
 
 1. card: the card's name and power limit from nvidia-smi;
 2. build: the CUDA kernels from the sources in the checkout, one nvcc
-   per source, all started together (sm_90a);
+   per source, all started together (sm_90a); ptxas's report read per
+   entry function: no B1 instantiation may spill or carry a wgmma note
+   (a ``warpgroup.arrive`` injected between its products, C7519, an
+   injected wait or serialised products), and the notes are printed for
+   every sm90 flash kernel;
 3. paged kernel: the paged-attention decode kernel (B4) against its
    plain PyTorch version at the full-width serving shapes and at the
    edges of its split (rows ending one token into a 64-token chunk, rows
@@ -24,7 +28,12 @@ run when it fails:
    (B3) kernels against their plain versions over every mask form in
    f32, over every mask form in bf16 (ragged tiles, GQA, head dims 16 to
    128) and at the full-width training shapes in bf16, the bf16 results
-   row by row against an f32 reference (timed likewise);
+   row by row against an f32 reference (timed likewise); B1's persistent
+   schedule at fewer work items than SMs, at many more with ragged t and
+   tkv, and with whole items whose rows see no column, each with a tile
+   left out shown to break the allowance; B1 at the training shape run
+   twice, bit-identical, and replayed from a CUDA graph, equal to the
+   eager call;
 5. flash-decode kernel: B5 against its plain version at the full-width
    generation shapes (q [8, 16, 1, 128], cache [8, 4, 3200, 128]) in
    bf16 and int8 row by row against an f32 reference, with a 64-slot
@@ -432,6 +441,19 @@ FLASH_BF16_CASES = {
     "causal_d16": ((1, 2, 2, 128, 128, 16), {}),
     "causal_d96": ((1, 4, 2, 256, 256, 96), {}),
     "row_offset_ragged_tkv": ((1, 4, 2, 96, 200, 64), dict(row_offset=104)),
+}
+
+# B1's persistent schedule (one CTA per SM walking the work items, a
+# 128-row q tile of one head each): fewer items than SMs, many more with
+# ragged t and tkv, and whole items whose rows see no column (t > tkv
+# under a window and row_offset); name -> (shape, mask, the 64 x 64 tiles
+# (first q row, first KV column) whose omission the allowance must see)
+FLASH_SCHEDULE_CASES = {
+    "one_item_t64": ((1, 1, 1, 64, 64, 128), {}, ((0, 0),)),
+    "ragged_many_items": ((2, 32, 8, 1000, 1100, 128), dict(row_offset=100),
+                          ((896, 960), (512, 256))),
+    "empty_items": ((2, 16, 4, 640, 512, 128),
+                    dict(window=32, row_offset=64), ((384, 416),)),
 }
 
 # training, card vs CPU in fp32: losses to cuBLAS-vs-CPU summation
@@ -1278,13 +1300,14 @@ def _check_empty_rows(pairs, empty, label) -> None:
                              f"and the finite empty lse")
 
 
-def _flash_bf16_case(name, shape, mask, gen) -> None:
+def _flash_bf16_case(name, shape, mask, gen, tiles=()) -> None:
     """One bf16 mask case: out, dq, dk and dv row by row against the f32
     reference within the allowance, lse within TOL_FLASH_LSE of it on
-    rows with a band, empty-band rows exact."""
+    rows with a band, empty-band rows exact; a 64 x 64 tile at each of
+    ``tiles`` left out shown to break the allowance of every output."""
     q, k, v, dout, g_lse = _flash_inputs(shape, torch.bfloat16, gen)
     pairs = _flash_pairs(q, k, v, dout, g_lse, mask)
-    ref, _ = _flash_f32_reference(q, k, v, dout, g_lse, mask)
+    ref, operands = _flash_f32_reference(q, k, v, dout, g_lse, mask)
     empty = _empty_rows(shape, mask)
     lse_err = (pairs["lse"][0] - ref["lse"])[:, :, ~empty].abs().max().item()
     readings = {o: _bf16_reading(pairs[o][0], pairs[o][1], ref[o])
@@ -1292,6 +1315,19 @@ def _flash_bf16_case(name, shape, mask, gen) -> None:
     print(f"bf16 {name} {shape} {mask}: lse {lse_err:.2e}; worst row over "
           f"its allowance " + ", ".join(
               f"{o} {r['over']:.3f}" for o, r in readings.items()))
+    if tiles:
+        allow = {o: _allowance(pairs[o][1], ref[o])
+                 for o in ("out", "dq", "dk", "dv")}
+        omitted = [_tile_omission(allow, operands, r0, c0,
+                                  FLASH_MUTANT_TILE, mask)
+                   for r0, c0 in tiles]
+        print("  a tile left out, over the allowance: " + "; ".join(
+            f"tile {r0},{c0}: " + ", ".join(f"{o} {m[o]:.1f}" for o in m)
+            for m, (r0, c0) in zip(omitted, tiles)))
+        for m in omitted:
+            if not min(m.values()) > 1.0:
+                raise AssertionError(f"the bf16 allowance in case {name} "
+                                     f"would not see a tile left out ({m})")
     if not lse_err <= TOL_FLASH_LSE:
         raise AssertionError(f"flash lse disagrees in bf16 case {name}: "
                              f"{lse_err}")
@@ -1484,6 +1520,41 @@ def _flash_f32_case(name, shape, mask, gen) -> None:
     _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
 
 
+def _flash_rerun_and_graph(gen) -> None:
+    """B1 at the training shape: two eager calls bit for bit the same,
+    and one call captured in a CUDA graph and replayed on new inputs
+    copied into its own, equal bit for bit to the eager call on those."""
+    b, h, h_kv, t, d = FLASH_FULL
+    shape = (b, h, h_kv, t, t, d)
+    q, k, v, _, _ = _flash_inputs(shape, torch.bfloat16, gen)
+    first, second = fa.flash_forward(q, k, v), fa.flash_forward(q, k, v)
+    rerun = all(torch.equal(x, y) for x, y in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # the warm-up a capture needs
+        fa.flash_forward(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fa.flash_forward(q, k, v)
+    fresh = _flash_inputs(shape, torch.bfloat16, gen)[:3]
+    for into, x in zip((q, k, v), fresh):
+        into.copy_(x)
+    graph.replay()
+    eager = fa.flash_forward(*fresh)
+    torch.cuda.synchronize()
+    replayed = all(torch.equal(x, y) for x, y in zip(captured, eager))
+    moved = not torch.equal(captured[0], first[0])
+    print(f"B1 {shape} causal: a second run bit-identical {rerun}; a graph "
+          f"replay on new inputs equal to the eager call {replayed} (its "
+          f"output moved with them: {moved})")
+    if not (rerun and replayed and moved):
+        raise AssertionError("B1 is not the same from run to run, or its "
+                             "graph replay is not the eager call")
+    del graph, captured
+    torch.cuda.empty_cache()
+
+
 def flash_phase(gen) -> dict:
     # every mask form, f32
     for name, (shape, mask) in FLASH_CASES.items():
@@ -1492,6 +1563,12 @@ def flash_phase(gen) -> dict:
     # every mask form, bf16
     for name, (shape, mask) in FLASH_BF16_CASES.items():
         _flash_bf16_case(name, shape, mask, gen)
+    # B1's persistent schedule, drawn from a generator of its own so that
+    # the checks after these draw from ``gen`` what they drew before
+    schedule = torch.Generator().manual_seed(15)
+    for name, (shape, mask, tiles) in FLASH_SCHEDULE_CASES.items():
+        _flash_bf16_case(name, shape, mask, schedule, tiles)
+    _flash_rerun_and_graph(schedule)
     torch.cuda.empty_cache()
 
     # the training shapes, bf16
@@ -4911,6 +4988,57 @@ def _spills(log: str) -> dict:
     return found
 
 
+# an sm90 flash kernel's mangled name: (kernel, head dim)
+SM90_FLASH_KERNEL = re.compile(
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel_sm90)ILi(\d+)E")
+
+
+def _wgmma_notes(log: str) -> dict:
+    """{entry function: {code: count}} of ptxas's notes on its wgmma
+    pipelines (C7510-C7520: a ``warpgroup.arrive`` or ``warpgroup.wait``
+    it injected, or the products it serialised) in an nvcc log, {} for
+    each entry function it compiled without one. A note belongs to the
+    function it names, or else to the entry function being compiled."""
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        note = re.search(r"\((C75(?:1\d|20))\)", line)
+        if entry:
+            name = entry.group(1)
+            found.setdefault(name, {})
+        elif note:
+            named = re.search(r"function '([^']+)'", line)
+            notes = found.setdefault(named.group(1) if named else name, {})
+            notes[note.group(1)] = notes.get(note.group(1), 0) + 1
+    return found
+
+
+def _check_flash_build(log: str) -> None:
+    """For every sm90 flash instantiation in flash_attention.cu's nvcc
+    log, its injected arrives (C7519), its other wgmma notes and its
+    spill bytes, printed; B1's (``flash_fwd_kernel_sm90<64, 128, 256>``)
+    must have no note at all (no injected arrive or wait, no serialised
+    product) and no spill."""
+    notes, spills = _wgmma_notes(log), _spills(log)
+    bad = []
+    for fn in sorted(notes):
+        kernel = SM90_FLASH_KERNEL.search(fn)
+        if kernel is None:
+            continue
+        label = f"{kernel.group(1)}<{kernel.group(2)}>"
+        other = {c: n for c, n in notes[fn].items() if c != "C7519"}
+        print(f"{label}: {notes[fn].get('C7519', 0)} injected "
+              f"warpgroup.arrive (C7519), other wgmma notes {other}, spill "
+              f"bytes (stores, loads) {spills.get(fn)}")
+        if kernel.group(1) == "flash_fwd_kernel_sm90" and (
+                notes[fn] or spills.get(fn) != (0, 0)):
+            bad.append(label)
+    fwd = [fn for fn in notes if "flash_fwd_kernel_sm90" in fn]
+    if bad or len(fwd) != 3:
+        raise AssertionError(f"B1's instantiations ({len(fwd)} of 3 built) "
+                             f"serialise their products or spill: {bad}")
+
+
 def _check_hd256_spills(logs: dict) -> None:
     """Each source's <256> instantiations (HD256_INSTANTIATIONS, by
     source name; ``logs``: nvcc's output by source name) built, none of
@@ -4945,8 +5073,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print("  " + line.strip())
-    _check_hd256_spills({name: log for name, (_, _, log)
-                         in zip(KERNEL_SOURCES, built)})
+    logs = {name: log for name, (_, _, log) in zip(KERNEL_SOURCES, built)}
+    _check_hd256_spills(logs)
+    _check_flash_build(logs["flash_attention"])
 
     first = _run_half("1")
     second = _run_half("2")

@@ -46,19 +46,20 @@
 // Design. The TPU kernels carry their state across a sequential
 // superblock grid axis in VMEM scratch; Hopper has no ordered grid, so
 // each CTA walks its own KV tiles (forward, dq) or q tiles (dk/dv) in a
-// loop and nothing carries between CTAs. One CTA per (q tile, b * h) for
-// the forward and dq, one per (KV tile, b * h_kv) for dk/dv, which loops
-// over the GQA group's heads itself: no atomics, and the result does
-// not change from run to run. Loops start and stop at the causal,
-// window and prefix bounds, so tiles wholly outside the band are never
-// loaded, and the CTAs with the most tiles are launched first.
+// loop and nothing carries between CTAs. The work items are (q tile,
+// b * h) for the forward and dq, and (KV tile, b * h_kv) for dk/dv,
+// which loops over the GQA group's heads itself: no atomics, and the
+// result does not change from run to run. Loops start and stop at the
+// causal, window and prefix bounds, so tiles wholly outside the band are
+// never loaded, and the items with the most tiles come first. dq and
+// dk/dv launch one CTA per item; the bf16 forward is persistent (below).
 //
 // bf16 forward (B1), dq (B2) and dk/dv (B3), sm_90a only, along the
 // lines of FlashAttention-3: a CTA is two consumer warpgroups and one
 // producer warp(group). The producer's one thread streams tiles with TMA
 // (128-byte swizzled panels of 64 columns; rows and columns past the
 // tensor's edge arrive as zeros) through a ring of shared memory guarded
-// by mbarriers (three stages in B1 and B2, two in B3), so the next tile
+// by mbarriers (two stages in B1 and B3, three in B2), so the next tile
 // is in flight while the consumers multiply the current one. Each
 // consumer warpgroup owns 64 rows (B1, B2: q rows of a 128-row tile; B3:
 // KV rows of a 128-row tile), whose tiles (Q; Q, dO, lse and D; K and V)
@@ -73,23 +74,55 @@
 // from the same swizzled tiles, so nothing is transposed in memory. O, m
 // and l (B2: dQ; B3: dK and dV) stay in registers for the whole walk and
 // are written once; setmaxnreg moves registers from the producer to the
-// consumers. B1 and B2 also pipeline their walks: the warpgroup waits
-// only for the scores of tile j (B2: S and dP), and its softmax (B2: dS)
-// runs while the second product of tile j - 1 is still on the tensor
-// cores. B2 streams K and V in 64-row tiles, so that dQ (HD / 2 f32 a
+// consumers. B1 and B2 also pipeline their walks in the source: the
+// warpgroup issues the scores of tile j (B2: S and dP) and the second
+// product of tile j - 1, then waits only for the scores before its
+// softmax (B2: dS); B1's SASS shows where ptxas puts the second wait
+// (below). B2 streams K and V in 64-row tiles, so that dQ (HD / 2 f32 a
 // thread), S, dP and the dS operand fit the registers. Head dims up to
 // 64, up to 128 and up to 256 are three instantiations; the columns past
 // d are zero-filled by TMA and never stored.
 //
+// B1 (redesigned a second time). Per KV tile each consumer warpgroup
+// issues S = Q K^T and O += P V (the previous tile's P), waits only for
+// S and runs the softmax, whose ex2 on the MUFU takes half the tensor
+// cores' time for the same tile at HD 128. Three things keep the tensor
+// cores fed:
+// - no serialised products: every register operand of a wgmma (S's and
+//   O's accumulators, P's A operand) is fenced above its wgmma.fence, so
+//   ptxas injects no warpgroup.arrive of its own (C7519); each product is
+//   waited for in the iteration that issued it (a wait across the loop's
+//   back edge makes ptxas serialise them all, C7514/C7515); and the mask
+//   is predicates without branches, under one uniform test of the tile,
+//   so the softmax is one basic block and not 64 guarded ones;
+// - ping-pong: the two warpgroups take turns on the tensor cores through
+//   two named barriers, so one's softmax runs under the other's products;
+// - persistent CTAs: one per SM walks the items with a static stride of
+//   the grid over the longest-first order (deterministic, no counter,
+//   safe under graph capture). K and V stages are released apart (K once
+//   S is done, V once P V is), and the next item's Q loads as soon as
+//   the last S has read Q, under the last P V and the epilogue, which
+//   stages each warp's 16 rows in shared memory and stores 16-byte row
+//   segments.
+// Stages: at HD 64 and 128, Q (16 or 32 KiB) and two stages of 128-row
+// K and V tiles (32 or 64 KiB a stage) beside the 16 KiB epilogue
+// staging; a third stage would not fit at 128. At HD 256, 64-row K/V
+// tiles (O is 128 f32 a thread, S 32) and two stages: Q alone is 64 KiB.
+// What bounds it: the tensor cores at full width (the MUFU at half their
+// time at HD 128 and a quarter at 256). ptxas still places the wait for
+// P V above the softmax's exponentials in the same block, so a
+// warpgroup's own softmax does not overlap its P V; the other
+// warpgroup's products fill that gap.
+//
 // Head dim 256 (Gemma-class heads) keeps each kernel's shape where the
 // 227 KiB of shared memory and 240 registers a consumer thread allow it:
-// B1 streams K/V in 64-row tiles through two stages (O is 128 f32 a
-// thread, S 32); B2 in 32-row tiles through three (dQ 128, S and dP 16
-// each); B3 cannot hold dK and dV of 64 rows x 256 (256 f32 a thread), so
-// its CTA takes 64 KV rows and splits the head dim over the two consumer
-// warpgroups, each holding half of dK and dV, as FlashAttention-3 does.
-// Both warpgroups compute the whole S^T and dP^T (a reduction over all of
-// d), so B3 at 256 does 1.5 times the products it needs.
+// B1 streams K/V in 64-row tiles through two stages; B2 in 32-row tiles
+// through three (dQ 128, S and dP 16 each); B3 cannot hold dK and dV of
+// 64 rows x 256 (256 f32 a thread), so its CTA takes 64 KV rows and
+// splits the head dim over the two consumer warpgroups, each holding
+// half of dK and dV, as FlashAttention-3 does. Both warpgroups compute
+// the whole S^T and dP^T (a reduction over all of d), so B3 at 256 does
+// 1.5 times the products it needs.
 //
 // The f32 instantiations multiply with plain FMAs on 32-row tiles in
 // shared memory, so their comparison with the plain version is tight.
@@ -99,6 +132,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -659,6 +693,15 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// mbar_arrive by the threads for which `pred` holds, without a branch
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
 __device__ __forceinline__ uint64_t global_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
@@ -916,32 +959,88 @@ __device__ __forceinline__ bool unmasked(const Args& a, int r0, int r1,
 
 // ---------------------------------------------------- B1 forward, bf16
 
+// visible() as predicates and no branches, so that B1's softmax on a
+// masked tile stays one basic block (B2, B3 and the f32 kernels keep
+// visible())
+__device__ __forceinline__ bool seen(const Args& a, int r, int c) {
+  const bool band = (r >= c) & ((a.window == 0) | (r - c < a.window));
+  return (c < a.tkv) & ((a.causal == 0) | (c < a.prefix) | band);
+}
+
+// the named barriers (`bar.sync` ids; 0 is __syncthreads') on which the
+// two consumer warpgroups hand each other the tensor cores: warpgroup w
+// waits on kPingPong + w and, once its products are issued, arrives on
+// the other's
+constexpr int kPingPong = 1;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * 128)
+               : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128)
+               : "memory");
+}
+
 template <int HD> struct Fwd {
   // KV rows per ring stage: at HD 256 the 64-row tiles keep S (32 f32 a
   // thread) and P beside O (128) in the registers
   static constexpr int kBN = HD > 128 ? 64 : 128;
-  // three stages: the pipelined walk holds tile it - 1 (V) and tile it
-  // (K) while the producer fills the next; at HD 256 the shared memory
-  // holds two, so the producer loads tile it + 1 once tile it - 1 is
-  // released
-  static constexpr int kStages = HD > 128 ? 2 : 3;
+  // two stages, K and V released apart: K(it + 1) lands while S(it) and
+  // P V(it - 1) run. At HD 128, Q and two stages of K and V take 160 KiB
+  // and a third would not leave room for the epilogue's staging; at 256,
+  // Q alone is 64 KiB
+  static constexpr int kStages = 2;
   static constexpr int kPanels = HD / 64;
   static constexpr uint32_t kQWg = kPanels * kRows * kPanelRow;
   static constexpr uint32_t kKv = kPanels * kBN * kPanelRow;  // K or V
+  // a warp's 16 output rows of one 64-column panel, staged for 16-byte
+  // stores
+  static constexpr uint32_t kStageOut = 16 * kPanelRow;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + kConsumers * kQWg;
   static constexpr uint32_t kV = kK + kStages * kKv;
-  static constexpr uint32_t kBars = kV + kStages * kKv;
-  // q, k_full[S], v_full[S], empty[S]; + slack to align the base to 1024
-  static constexpr uint32_t kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr uint32_t kOut = kV + kStages * kKv;
+  static constexpr uint32_t kBars = kOut + kConsumers * 4 * kStageOut;
+  // q_full, q_empty, k_full[S], k_empty[S], v_full[S], v_empty[S]; +
+  // slack to align the base to 1024
+  static constexpr uint32_t kSmem = kBars + 8 * (2 + 4 * kStages) + 1024;
   static_assert(kSmem <= kMaxSmem, "B1's tiles fit the shared memory");
 };
 
-// B1 in bf16, replaces `_flash_kernel` (ops/attention.py:105). One CTA
-// per (128-row q tile, b * h); consumer warpgroup w owns q rows
-// [64 w, 64 w + 64) of the tile. Per KV tile of kBN rows: S = Q K^T by
-// wgmma from shared memory, the online softmax on the fragment, O *=
-// alpha and O += P V with P from registers. Returns out (bf16) and the
+// one work item of B1: q rows [i0, i0 + rows) of head bh (kTile rows at
+// most), against KV tiles [lo, lo + n) of its KV head kvh
+struct FwdTile {
+  int bh, i0, rows, kvh, lo, n;
+};
+
+// Work item `i` of the longest-first order: the last q tiles of every
+// head first (under a causal mask they see the most KV tiles), then the
+// ones before them.
+template <int kTile, int kBN>
+__device__ __forceinline__ FwdTile fwd_tile(const Args& a, int i, int n_qt) {
+  FwdTile w;
+  const int bhs = a.b * a.h;
+  w.bh = i % bhs;
+  w.i0 = (n_qt - 1 - i / bhs) * kTile;
+  w.rows = min(kTile, a.t - w.i0);
+  w.kvh = (w.bh / a.h) * a.h_kv + (w.bh % a.h) / (a.h / a.h_kv);
+  int hi;
+  kv_tiles(a, a.row_offset + w.i0, a.row_offset + w.i0 + w.rows - 1, kBN,
+           &w.lo, &hi);
+  w.n = hi - w.lo;
+  return w;
+}
+
+// B1 in bf16, replaces `_flash_kernel` (ops/attention.py:105). Persistent:
+// gridDim.x CTAs (one per SM) walk the (128-row q tile, b * h) work
+// items of the longest-first order with a stride of gridDim.x, so the
+// walk is the same from run to run, needs no counter, and a graph can
+// capture it. Consumer warpgroup w owns q rows [64 w, 64 w + 64) of each
+// item. Per KV tile of kBN rows: S = Q K^T by wgmma from shared memory,
+// the online softmax on the fragment, O *= alpha and O += P V with P from
+// registers; the two warpgroups take turns on the tensor cores, so one's
+// softmax runs under the other's products. Returns out (bf16) and the
 // natural-log lse.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -951,27 +1050,27 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const Args a) {
   using L = Fwd<HD>;
   constexpr int kBN = L::kBN;
+  constexpr int kS = L::kStages;
+  constexpr int kTile = kConsumers * kRows;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t bar_q = base + L::kBars;
-  const uint32_t bar_k = bar_q + 8;                 // + 8 s
-  const uint32_t bar_v = bar_k + 8 * L::kStages;
-  const uint32_t bar_empty = bar_v + 8 * L::kStages;
-
-  const int bh = blockIdx.x;
-  const int i0 = (gridDim.y - 1 - blockIdx.y) * (kConsumers * kRows);
-  const int rows = min(kConsumers * kRows, a.t - i0);
-  const int kvh = (bh / a.h) * a.h_kv + (bh % a.h) / (a.h / a.h_kv);
-  int lo, hi;
-  kv_tiles(a, a.row_offset + i0, a.row_offset + i0 + rows - 1, kBN, &lo, &hi);
-  const int n = hi - lo;
+  const uint32_t bar_q_full = base + L::kBars;
+  const uint32_t bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_k_full = bar_q_empty + 8;      // + 8 s
+  const uint32_t bar_k_empty = bar_k_full + 8 * kS;
+  const uint32_t bar_v_full = bar_k_empty + 8 * kS;
+  const uint32_t bar_v_empty = bar_v_full + 8 * kS;
+  const int n_qt = (a.t + kTile - 1) / kTile;
+  const int n_items = n_qt * a.b * a.h;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(bar_k + 8 * s, 1);
-      mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one per warp
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, kConsumers * 4);         // one per warp
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(bar_k_full + 8 * s, 1);
+      mbar_init(bar_k_empty + 8 * s, kConsumers * 4);
+      mbar_init(bar_v_full + 8 * s, 1);
+      mbar_init(bar_v_empty + 8 * s, kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -982,26 +1081,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
-      // q rows wholly past t are not loaded; their rows are never stored
-      const int live = (rows + kRows - 1) / kRows;
-      mbar_expect(bar_q, live * L::kQWg);
-      for (int w = 0; w < live; ++w)
-        for (int p = 0; p < L::kPanels; ++p)
-          tma_load_3d(base + L::kQ + w * L::kQWg + p * kRows * kPanelRow,
-                      &tm_q, bar_q, 64 * p, i0 + kRows * w, bh);
-      for (int it = 0; it < n; ++it) {
-        const int s = it % L::kStages;
-        if (it >= L::kStages)
-          mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
-        const int c0 = (lo + it) * kBN;
-        mbar_expect(bar_k + 8 * s, L::kKv);
-        for (int p = 0; p < L::kPanels; ++p)
-          tma_load_3d(base + L::kK + s * L::kKv + p * kBN * kPanelRow, &tm_k,
-                      bar_k + 8 * s, 64 * p, c0, kvh);
-        mbar_expect(bar_v + 8 * s, L::kKv);
-        for (int p = 0; p < L::kPanels; ++p)
-          tma_load_3d(base + L::kV + s * L::kKv + p * kBN * kPanelRow, &tm_v,
-                      bar_v + 8 * s, 64 * p, c0, kvh);
+      int kv = 0;                     // KV tiles loaded, over all items
+      int item = 0;                   // items loaded
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++item) {
+        const FwdTile w = fwd_tile<kTile, kBN>(a, i, n_qt);
+        // the next item's Q once both warpgroups are done with the last
+        // one's (its last S), so it lands under the last P V and the
+        // epilogue. q rows wholly past t are not loaded; their rows are
+        // never stored
+        if (item > 0) mbar_wait(bar_q_empty, (item - 1) & 1);
+        const int live = (w.rows + kRows - 1) / kRows;
+        mbar_expect(bar_q_full, live * L::kQWg);
+        for (int h = 0; h < live; ++h)
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_3d(base + L::kQ + h * L::kQWg + p * kRows * kPanelRow,
+                        &tm_q, bar_q_full, 64 * p, w.i0 + kRows * h, w.bh);
+        for (int it = 0; it < w.n; ++it, ++kv) {
+          const int s = kv % kS;
+          // the phase in which the consumers freed stage s
+          const uint32_t freed = ((kv / kS) - 1) & 1;
+          const int c0 = (w.lo + it) * kBN;
+          if (kv >= kS) mbar_wait(bar_k_empty + 8 * s, freed);
+          mbar_expect(bar_k_full + 8 * s, L::kKv);
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_3d(base + L::kK + s * L::kKv + p * kBN * kPanelRow,
+                        &tm_k, bar_k_full + 8 * s, 64 * p, c0, w.kvh);
+          if (kv >= kS) mbar_wait(bar_v_empty + 8 * s, freed);
+          mbar_expect(bar_v_full + 8 * s, L::kKv);
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_3d(base + L::kV + s * L::kKv + p * kBN * kPanelRow,
+                        &tm_v, bar_v_full + 8 * s, 64 * p, c0, w.kvh);
+        }
       }
     }
   } else {
@@ -1011,19 +1121,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = t / 32, lane = t % 32;
     const int qr = lane / 4, qc = 2 * (lane % 4);
     const uint32_t q_s = base + L::kQ + wg * L::kQWg;
-    const int r0 = a.row_offset + i0 + kRows * wg;    // first global row
-    const int rw = r0 + 16 * warp + qr;               // this thread's row
     const float qk_scale = a.scale * kLog2e;
+    // this warp's staging panel for the epilogue
+    uint32_t* staged = reinterpret_cast<uint32_t*>(
+        smem_raw + (base - smem_addr(smem_raw)) + L::kOut +
+        (wg * 4 + warp) * L::kStageOut);
 
-    float o[HD / 2];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-    // S = Q K^T of tile `it` into sc, issued and committed, not waited
-    auto issue_s = [&](float (&sc)[kBN / 2], int it) {
-      const uint32_t k_s = base + L::kK + (it % L::kStages) * L::kKv;
-      mbar_wait(bar_k + 8 * (it % L::kStages), (it / L::kStages) & 1);
+    // S = Q K^T of KV tile `kv` (over all items) into sc: issued and
+    // committed, not waited. The register fences before wgmma.fence pin
+    // every write to sc (the softmax's) above it, so ptxas has no reason
+    // to add a warpgroup.arrive of its own between the products.
+    auto issue_s = [&](float (&sc)[kBN / 2], int kv) {
+      const uint32_t k_s = base + L::kK + (kv % kS) * L::kKv;
+      fence_regs(sc);
+      wg_fence();
 #pragma unroll
       for (int k = 0; k < HD / 16; ++k) {
         const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
@@ -1032,115 +1143,193 @@ __global__ void __launch_bounds__(kThreads, 1)
                  k > 0);
       }
       wg_commit();
+      fence_regs(sc);
     };
-    // O += P V of tile `it`, issued and committed, not waited
-    auto issue_pv = [&](const uint32_t (&pa)[kBN / 16][4], int it) {
-      const uint32_t v_s = base + L::kV + (it % L::kStages) * L::kKv;
-      mbar_wait(bar_v + 8 * (it % L::kStages), (it / L::kStages) & 1);
+    // O += P V of KV tile `kv`: issued and committed, not waited; O's
+    // rescale and P's rounding are pinned above the wgmma.fence likewise
+    auto issue_pv = [&](float (&o)[HD / 2], uint32_t (&pa)[kBN / 16][4],
+                        int kv) {
+      const uint32_t v_s = base + L::kV + (kv % kS) * L::kKv;
+      fence_regs(o);
+      fence_regs(pa);
+      wg_fence();
 #pragma unroll
       for (int k = 0; k < kBN / 16; ++k)
         wgmma_rs_mn(o, pa[k], v_s + k * 16 * kPanelRow, kBN * kPanelRow);
       wg_commit();
-    };
-    // online softmax in base 2 on the fragment of tile `it`: sc becomes
-    // P, m and l move on, and alpha rescales O. Masked scores take a fill
-    // below the m sentinel so they give exp2(...) == 0.
-    auto softmax = [&](float (&sc)[kBN / 2], int it, float (&alpha)[2]) {
-      const int c0 = (lo + it) * kBN;
-      const bool full = unmasked(a, r0, r0 + kRows - 1, c0, c0 + kBN - 1);
-      float mx[2] = {2.f * kNegInf, 2.f * kNegInf};
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * j + e] * qk_scale;
-          if (!full && !visible(a, rw + 8 * (e / 2), c0 + 8 * j + qc + e % 2))
-            x = 2.f * kNegInf;
-          sc[4 * j + e] = x;
-          mx[e / 2] = fmaxf(mx[e / 2], x);
-        }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m[i], quad_max(mx[i]));
-        alpha[i] = ex2(m[i] - m_new);
-        m[i] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex2(sc[4 * j + e] - m[e / 2]);
-          sc[4 * j + e] = p;
-          sum[e / 2] += p;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
-    };
-    auto release = [&](int it) {
-      if (lane == 0) mbar_arrive(bar_empty + 8 * (it % L::kStages));
-    };
-
-    // Software pipeline over the KV walk: the tensor cores get S(it) =
-    // Q K(it)^T and then O += P(it - 1) V(it - 1); the warpgroup waits
-    // only for the first, runs softmax(it) beside the P V product, and
-    // rescales O once that product is done.
-    float sc[kBN / 2];
-    uint32_t pa[kBN / 16][4];
-    float alpha[2];
-    mbar_wait(bar_q, 0);
-    if (n > 0) {
-      wg_fence();
-      issue_s(sc, 0);
-      wg_wait<0>();
-      fence_regs(sc);
-      softmax(sc, 0, alpha);
-      to_a_operand<kBN>(sc, pa);
-    }
-    for (int it = 1; it < n; ++it) {
-      wg_fence();
-      issue_s(sc, it);
-      issue_pv(pa, it - 1);
-      wg_wait<1>();                  // S(it) is done, P V may still run
-      fence_regs(sc);
-      softmax(sc, it, alpha);
-      wg_wait<0>();
-      fence_regs(o);
-      fence_regs(pa);                // P(it - 1) stays put until here
-      release(it - 1);
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
-      to_a_operand<kBN>(sc, pa);
-    }
-    if (n > 0) {
-      wg_fence();
-      issue_pv(pa, n - 1);
-      wg_wait<0>();
       fence_regs(o);
       fence_regs(pa);
-      release(n - 1);
-    }
+    };
+    auto k_ready = [&](int kv) {
+      mbar_wait(bar_k_full + 8 * (kv % kS), (kv / kS) & 1);
+    };
+    auto v_ready = [&](int kv) {
+      mbar_wait(bar_v_full + 8 * (kv % kS), (kv / kS) & 1);
+    };
 
-    // out = O / l and lse, straight from the fragment
-    const int d = a.d;
+    // warpgroup 0 takes the tensor cores first
+    if (wg == 1) named_arrive(kPingPong);
+    int kv = 0;                       // KV tiles consumed, over all items
+    int item = 0;                     // items consumed
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++item) {
+      const FwdTile w = fwd_tile<kTile, kBN>(a, i, n_qt);
+      const int n = w.n;
+      const int r0 = a.row_offset + w.i0 + kRows * wg;  // first global row
+      const int rw = r0 + 16 * warp + qr;               // this thread's row
+
+      float o[HD / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float li = fmaxf(quad_sum(l[i]), 1e-30f);
-      const int qi = i0 + kRows * wg + 16 * warp + qr + 8 * i;
-      if (qi >= a.t) continue;
-      const size_t row = (size_t)bh * a.t + qi;
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + row * d;
+      for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+      // online softmax in base 2 on the fragment of the item's KV tile
+      // `it`: sc becomes P, m and l move on, and alpha is what rescales
+      // O. Masked scores take a fill below the m sentinel so they give
+      // exp2(...) == 0.
+      auto softmax = [&](float (&sc)[kBN / 2], int it, float (&alpha)[2]) {
+        const int c0 = (w.lo + it) * kBN;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int c = 8 * j + qc;
-        if (c < d)
-          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
-              o[4 * j + 2 * i] / li, o[4 * j + 2 * i + 1] / li);
+        for (int j = 0; j < kBN / 2; ++j) sc[j] *= qk_scale;
+        if (!unmasked(a, r0, r0 + kRows - 1, c0, c0 + kBN - 1)) {
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!seen(a, rw + 8 * (e / 2), c0 + 8 * j + qc + e % 2))
+                sc[4 * j + e] = 2.f * kNegInf;
+        }
+        float mx[2] = {2.f * kNegInf, 2.f * kNegInf};
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]));
+          alpha[r] = ex2(m[r] - m_new);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(sc[4 * j + e] - m[e / 2]);
+            sc[4 * j + e] = p;
+            sum[e / 2] += p;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+      };
+      auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+      };
+
+      // Per KV tile `it` the warpgroup waits for its tiles, takes its
+      // turn (named_sync), issues S(it) and, after O's rescale, O +=
+      // P(it - 1) V(it - 1), and hands the turn over; then it waits only
+      // for S(it), releases K(it) (and Q after the item's last S), runs
+      // softmax(it) beside the P V product and the other warpgroup's
+      // products, and releases V(it - 1) once its product is done. Each
+      // product is waited for in the iteration that issued it (a wait
+      // across the loop's back edge makes ptxas serialise every wgmma).
+      // The first tile is peeled and releases are predicated, not
+      // branched, so no branch separates a product from its wait.
+      float sc[kBN / 2];
+      uint32_t pa[kBN / 16][4];
+      float alpha[2];
+      mbar_wait(bar_q_full, item & 1);
+      mbar_arrive_if(bar_q_empty, lane == 0 && n == 0);
+      if (n > 0) {
+        k_ready(kv);
+        named_sync(kPingPong + wg);
+        issue_s(sc, kv);
+        named_arrive(kPingPong + 1 - wg);
+        wg_wait<0>();
+        fence_regs(sc);
+        mbar_arrive_if(bar_k_empty + 8 * (kv % kS), lane == 0);
+        mbar_arrive_if(bar_q_empty, lane == 0 && n == 1);
+        softmax(sc, 0, alpha);
+        to_a_operand<kBN>(sc, pa);
       }
-      if (a.lse_out != nullptr && lane % 4 == 0)
-        a.lse_out[row] = (m[i] + log2f(li)) / kLog2e;
+      for (int it = 1; it < n; ++it) {
+        k_ready(kv + it);
+        v_ready(kv + it - 1);
+        named_sync(kPingPong + wg);
+        issue_s(sc, kv + it);
+        rescale(alpha);
+        issue_pv(o, pa, kv + it - 1);
+        named_arrive(kPingPong + 1 - wg);
+        wg_wait<1>();                 // S(it) is done, P V may still run
+        fence_regs(sc);
+        mbar_arrive_if(bar_k_empty + 8 * ((kv + it) % kS), lane == 0);
+        mbar_arrive_if(bar_q_empty, lane == 0 && it == n - 1);
+        softmax(sc, it, alpha);
+        fence_regs(sc);
+        wg_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);               // P(it - 1) stays put until here
+        fence_regs(sc);
+        mbar_arrive_if(bar_v_empty + 8 * ((kv + it - 1) % kS), lane == 0);
+        to_a_operand<kBN>(sc, pa);
+      }
+      if (n > 0) {
+        v_ready(kv + n - 1);
+        rescale(alpha);
+        issue_pv(o, pa, kv + n - 1);
+        wg_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive_if(bar_v_empty + 8 * ((kv + n - 1) % kS), lane == 0);
+      }
+      kv += n;
+
+      // out = O / l through the warp's staging panel, 64 columns at a
+      // time: the fragment goes in as 4-byte pairs (16-byte chunks XOR
+      // swizzled by row, so neither side conflicts on a bank) and leaves
+      // as one 16-byte store per 8 columns, a row's 128 bytes by 8
+      // neighbouring lanes. lse straight from the fragment.
+      const int d = a.d;
+      const int q0 = w.i0 + kRows * wg + 16 * warp;   // the warp's first row
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float li = fmaxf(quad_sum(l[r]), 1e-30f);
+        inv[r] = 1.f / li;
+        const int qi = q0 + qr + 8 * r;
+        if (a.lse_out != nullptr && lane % 4 == 0 && qi < a.t)
+          a.lse_out[(size_t)w.bh * a.t + qi] = (m[r] + log2f(li)) / kLog2e;
+      }
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                           ((size_t)w.bh * a.t + q0) * d;
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 8 * p + c;
+            const int row = qr + 8 * r;
+            staged[row * 32 + ((c ^ qr) * 4) + lane % 4] =
+                pack_bf16(o[4 * j + 2 * r] * inv[r],
+                          o[4 * j + 2 * r + 1] * inv[r]);
+          }
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int row = 4 * k + lane / 8, c = lane % 8;
+          const int col = 64 * p + 8 * c;
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              staged + row * 32 + ((c ^ (row & 7)) * 4));
+          if (q0 + row < a.t && col < d)
+            *reinterpret_cast<uint4*>(out + (size_t)row * d + col) = v;
+        }
+        __syncwarp();
+      }
     }
   }
 }
@@ -1738,6 +1927,23 @@ int vec_map(CUtensorMap* map, const float* ptr, size_t n, int box) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// the current device's SM count, B1's grid: one persistent CTA per SM.
+// Read once per device, so that a launch under graph capture makes no
+// query of its own.
+int sm_count(int* n) {
+  static int known[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && known[dev] > 0) {
+    *n = known[dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < 64) known[dev] = *n;
+  return (int)e;
+}
+
 template <int HD>
 int launch_fwd_sm90(const Args& a, cudaStream_t s) {
   using L = sm90::Fwd<HD>;
@@ -1747,9 +1953,11 @@ int launch_fwd_sm90(const Args& a, cudaStream_t s) {
   if (int e = rows_map(&tv, a.v, a.d, a.tkv, a.b * a.h_kv, L::kBN)) return e;
   if (int e = prepare(sm90::flash_fwd_kernel_sm90<HD>, L::kSmem)) return e;
   constexpr int kTile = sm90::kConsumers * sm90::kRows;
-  const dim3 grid(a.b * a.h, (a.t + kTile - 1) / kTile);
+  const int items = a.b * a.h * ((a.t + kTile - 1) / kTile);
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
   sm90::flash_fwd_kernel_sm90<HD>
-      <<<grid, sm90::kThreads, L::kSmem, s>>>(tq, tk, tv, a);
+      <<<std::min(items, sms), sm90::kThreads, L::kSmem, s>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
