@@ -456,6 +456,24 @@ FLASH_SCHEDULE_CASES = {
                     dict(window=32, row_offset=64), ((384, 416),)),
 }
 
+# B2's persistent schedule (as B1's) and B3's walk over the GQA group,
+# each instantiation: fewer items than SMs, ragged t and tkv with many
+# items, rows that see no column (whose dq must be 0), and groups of 8
+# query heads a KV head (the HD256 cell's), at head dims 64 and 256 (B2
+# stages its epilogue in dO there; B3's warpgroups trade P^T and dS^T);
+# name -> (shape, mask, tiles left out), as FLASH_SCHEDULE_CASES
+FLASH_BWD_SCHEDULE_CASES = {
+    "one_item_t64_d256": ((1, 1, 1, 64, 64, 256), {}, ((0, 0),)),
+    "ragged_many_items_d64": ((2, 32, 8, 1000, 1100, 64),
+                              dict(row_offset=100), ((512, 256),)),
+    "ragged_many_items_d256": ((2, 8, 1, 1000, 1100, 256),
+                               dict(row_offset=100), ((896, 960),)),
+    "empty_items_d256": ((2, 8, 1, 640, 512, 256),
+                         dict(window=32, row_offset=64), ((384, 416),)),
+    "gqa_group_8": ((2, 16, 2, 384, 384, 128), {}, ((320, 256),)),
+    "gqa_group_8_d256": ((1, 8, 1, 384, 384, 256), {}, ((320, 256),)),
+}
+
 # training, card vs CPU in fp32: losses to cuBLAS-vs-CPU summation
 # order; params after three AdamW steps to 1% of one step's largest
 # move for all but 1% of elements, the rest within the largest move of
@@ -1520,37 +1538,50 @@ def _flash_f32_case(name, shape, mask, gen) -> None:
     _check_empty_rows(pairs, _empty_rows(shape, mask), f"f32 {name}")
 
 
+def _flash_train_calls(q, k, v, dout):
+    """B1, then B2 and B3 on its out and lse with D = rowsum(dO * O), as
+    flash_attention's forward and backward call them: (out, lse, dq, dk,
+    dv)."""
+    out, lse = fa.flash_forward(q, k, v)
+    dd = (dout.float() * out.float()).sum(-1)
+    dq = fa.flash_backward_dq(q, k, v, dout, lse, dd)
+    dk, dv = fa.flash_backward_dkv(q, k, v, dout, lse, dd)
+    return out, lse, dq, dk, dv
+
+
 def _flash_rerun_and_graph(gen) -> None:
-    """B1 at the training shape: two eager calls bit for bit the same,
-    and one call captured in a CUDA graph and replayed on new inputs
-    copied into its own, equal bit for bit to the eager call on those."""
+    """B1-B3 at the training shape: two eager calls of each bit for bit
+    the same, and the three captured in one CUDA graph and replayed on
+    new inputs copied into its own, equal bit for bit to the eager calls
+    on those."""
     b, h, h_kv, t, d = FLASH_FULL
     shape = (b, h, h_kv, t, t, d)
-    q, k, v, _, _ = _flash_inputs(shape, torch.bfloat16, gen)
-    first, second = fa.flash_forward(q, k, v), fa.flash_forward(q, k, v)
+    q, k, v, dout, _ = _flash_inputs(shape, torch.bfloat16, gen)
+    first = _flash_train_calls(q, k, v, dout)
+    second = _flash_train_calls(q, k, v, dout)
     rerun = all(torch.equal(x, y) for x, y in zip(first, second))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):     # the warm-up a capture needs
-        fa.flash_forward(q, k, v)
+        _flash_train_calls(q, k, v, dout)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = fa.flash_forward(q, k, v)
-    fresh = _flash_inputs(shape, torch.bfloat16, gen)[:3]
-    for into, x in zip((q, k, v), fresh):
+        captured = _flash_train_calls(q, k, v, dout)
+    fresh = _flash_inputs(shape, torch.bfloat16, gen)[:4]
+    for into, x in zip((q, k, v, dout), fresh):
         into.copy_(x)
     graph.replay()
-    eager = fa.flash_forward(*fresh)
+    eager = _flash_train_calls(*fresh)
     torch.cuda.synchronize()
     replayed = all(torch.equal(x, y) for x, y in zip(captured, eager))
-    moved = not torch.equal(captured[0], first[0])
-    print(f"B1 {shape} causal: a second run bit-identical {rerun}; a graph "
-          f"replay on new inputs equal to the eager call {replayed} (its "
-          f"output moved with them: {moved})")
+    moved = all(not torch.equal(x, y) for x, y in zip(captured, first))
+    print(f"B1-B3 {shape} causal: a second run bit-identical {rerun}; a "
+          f"graph replay on new inputs equal to the eager calls {replayed} "
+          f"(out, lse, dq, dk and dv moved with them: {moved})")
     if not (rerun and replayed and moved):
-        raise AssertionError("B1 is not the same from run to run, or its "
-                             "graph replay is not the eager call")
+        raise AssertionError("B1-B3 are not the same from run to run, or "
+                             "their graph replay is not the eager calls")
     del graph, captured
     torch.cuda.empty_cache()
 
@@ -1563,10 +1594,13 @@ def flash_phase(gen) -> dict:
     # every mask form, bf16
     for name, (shape, mask) in FLASH_BF16_CASES.items():
         _flash_bf16_case(name, shape, mask, gen)
-    # B1's persistent schedule, drawn from a generator of its own so that
-    # the checks after these draw from ``gen`` what they drew before
+    # B1's and B2's persistent schedule and B3's walk, drawn from a
+    # generator of its own so that the checks after these draw from
+    # ``gen`` what they drew before
     schedule = torch.Generator().manual_seed(15)
     for name, (shape, mask, tiles) in FLASH_SCHEDULE_CASES.items():
+        _flash_bf16_case(name, shape, mask, schedule, tiles)
+    for name, (shape, mask, tiles) in FLASH_BWD_SCHEDULE_CASES.items():
         _flash_bf16_case(name, shape, mask, schedule, tiles)
     _flash_rerun_and_graph(schedule)
     torch.cuda.empty_cache()
@@ -5014,29 +5048,29 @@ def _wgmma_notes(log: str) -> dict:
 
 
 def _check_flash_build(log: str) -> None:
-    """For every sm90 flash instantiation in flash_attention.cu's nvcc
-    log, its injected arrives (C7519), its other wgmma notes and its
-    spill bytes, printed; B1's (``flash_fwd_kernel_sm90<64, 128, 256>``)
-    must have no note at all (no injected arrive or wait, no serialised
+    """Every sm90 flash instantiation in flash_attention.cu's nvcc log
+    (B1-B3, ``flash_{fwd,bwd_dq,bwd_dkv}_kernel_sm90<64, 128, 256>``)
+    with its wgmma notes and spill bytes printed; each must have been
+    built with no note at all (no injected arrive or wait, no serialised
     product) and no spill."""
     notes, spills = _wgmma_notes(log), _spills(log)
-    bad = []
+    bad, built = [], 0
     for fn in sorted(notes):
         kernel = SM90_FLASH_KERNEL.search(fn)
         if kernel is None:
             continue
+        built += 1
         label = f"{kernel.group(1)}<{kernel.group(2)}>"
         other = {c: n for c, n in notes[fn].items() if c != "C7519"}
         print(f"{label}: {notes[fn].get('C7519', 0)} injected "
               f"warpgroup.arrive (C7519), other wgmma notes {other}, spill "
               f"bytes (stores, loads) {spills.get(fn)}")
-        if kernel.group(1) == "flash_fwd_kernel_sm90" and (
-                notes[fn] or spills.get(fn) != (0, 0)):
+        if notes[fn] or spills.get(fn) != (0, 0):
             bad.append(label)
-    fwd = [fn for fn in notes if "flash_fwd_kernel_sm90" in fn]
-    if bad or len(fwd) != 3:
-        raise AssertionError(f"B1's instantiations ({len(fwd)} of 3 built) "
-                             f"serialise their products or spill: {bad}")
+    if bad or built != 9:
+        raise AssertionError(f"the sm90 flash instantiations ({built} of 9 "
+                             f"built) serialise their products or spill: "
+                             f"{bad}")
 
 
 def _check_hd256_spills(logs: dict) -> None:

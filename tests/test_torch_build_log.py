@@ -1,8 +1,9 @@
 """The build phase's reading of ptxas's report in ``chip_smoke.py``: the
 ``warpgroup.arrive``s that ptxas injected between wgmma's (C7519), its
 other notes on wgmma pipelines (serialised products, injected waits)
-and the spill bytes, counted per entry function, and B1's
-instantiations refused when they carry any of them."""
+and the spill bytes, counted per entry function, and the nine sm90
+flash instantiations (B1-B3 at head dims 64, 128 and 256) refused when
+any of them carries one, spills or is missing."""
 
 import importlib.util
 from pathlib import Path
@@ -92,17 +93,43 @@ def test_kernel_names_are_read_from_the_mangled_names():
         "flash_fwd_kernel_sm90", "256")
 
 
+KERNELS = ("flash_fwd_kernel_sm90", "flash_bwd_dq_kernel_sm90",
+           "flash_bwd_dkv_kernel_sm90")
+
+
+def _flash_log(faulty=("flash_fwd_kernel_sm90", 128), arrives=0,
+               spill=(0, 0), serialised=False, left_out=None) -> str:
+    """The nine sm90 flash instantiations, the ``faulty`` one (kernel,
+    head dim) with ``arrives``, ``spill`` and a serialised pipeline if
+    asked, and the ``left_out`` one missing."""
+    lines = []
+    for kernel in KERNELS:
+        for hd in (64, 128, 256):
+            if (kernel, hd) == left_out:
+                continue
+            name = _mangled(kernel, hd)
+            lines += (_entry(name, spill, arrives, serialised=serialised)
+                      if (kernel, hd) == faulty else _entry(name))
+    return "\n".join(lines)
+
+
 def _b1_log(arrives=0, spill=(0, 0), serialised=False,
             hds=(64, 128, 256)) -> str:
-    """B1 at ``hds``, the one at 128 with ``arrives``, ``spill`` and a
-    serialised pipeline if asked, and B2 at 64 with the two arrives it
-    is allowed."""
-    lines = []
-    for hd in hds:
-        name = _mangled("flash_fwd_kernel_sm90", hd)
-        lines += (_entry(name, spill, arrives, serialised=serialised)
-                  if hd == 128 else _entry(name))
-    return "\n".join(lines + _entry(DQ_64, arrives=2))
+    """The nine instantiations, B1 at 128 with ``arrives``, ``spill``
+    and a serialised pipeline if asked, and B1 only at ``hds``."""
+    missing = [hd for hd in (64, 128, 256) if hd not in hds]
+    return _flash_log(arrives=arrives, spill=spill, serialised=serialised,
+                      left_out=("flash_fwd_kernel_sm90", missing[0])
+                      if missing else None)
+
+
+def _check(log, refused, capsys) -> str:
+    if refused:
+        with pytest.raises(AssertionError):
+            cs._check_flash_build(log)
+    else:
+        cs._check_flash_build(log)
+    return capsys.readouterr().out
 
 
 @pytest.mark.parametrize("log, refused", [
@@ -115,11 +142,24 @@ def _b1_log(arrives=0, spill=(0, 0), serialised=False,
         "instantiation_missing"])
 def test_the_build_check_refuses_a_serialised_or_spilling_b1(log, refused,
                                                              capsys):
-    if refused:
-        with pytest.raises(AssertionError):
-            cs._check_flash_build(log)
-    else:
-        cs._check_flash_build(log)
-    printed = capsys.readouterr().out
-    assert "flash_bwd_dq_kernel_sm90<64>: 2 injected warpgroup.arrive" \
+    printed = _check(log, refused, capsys)
+    assert "flash_bwd_dq_kernel_sm90<64>: 0 injected warpgroup.arrive" \
         in printed
+
+
+@pytest.mark.parametrize("log, refused", [
+    (_flash_log(faulty=None), False),
+    (_flash_log(("flash_bwd_dq_kernel_sm90", 64), arrives=2), True),
+    (_flash_log(("flash_bwd_dq_kernel_sm90", 256), arrives=1), True),
+    (_flash_log(("flash_bwd_dkv_kernel_sm90", 256), spill=(8, 8)), True),
+    (_flash_log(("flash_bwd_dkv_kernel_sm90", 128), serialised=True), True),
+    (_flash_log(faulty=None, left_out=("flash_bwd_dkv_kernel_sm90", 64)),
+     True),
+], ids=["clean_nine", "b2_injected_arrives", "b2_256_injected_arrive",
+        "b3_256_spill", "b3_serialised", "b3_missing"])
+def test_the_build_check_refuses_a_serialised_or_spilling_b2_or_b3(
+        log, refused, capsys):
+    printed = _check(log, refused, capsys)
+    # every instantiation built is printed with its notes and spills
+    assert printed.count("spill bytes (stores, loads)") == \
+        log.count("Compiling entry function")

@@ -47,9 +47,11 @@ NEW_MODULES = ("workloads/data.py", "workloads/utils/checkpoint.py",
 
 # the port's scripts outside its package: the card's smoke run, and the
 # tools that import its phases (phase 28's check against faults, B5's
-# split counts at head dim 256, B1's versions read side by side)
+# split counts at head dim 256, B1's and B2/B3's versions read side by
+# side)
 PORT_SCRIPTS = ("chip_smoke.py", "tools/pp_fault_reading.py",
-                "tools/decode_split_sweep.py", "tools/flash_fwd_steps.py")
+                "tools/decode_split_sweep.py", "tools/flash_fwd_steps.py",
+                "tools/flash_bwd_steps.py")
 
 
 def _port_files():

@@ -7,13 +7,15 @@ For each version (``LABEL=PATH`` to a flash_attention.cu):
 - nvcc with the port's flags (``ops/_build.py``), all versions at once;
   ptxas's report for each sm90 flash instantiation: injected
   ``warpgroup.arrive`` notes (C7519) and spill bytes; with ``--sass``,
-  the counts of WARPGROUP.ARRIVE, WARPGROUP.DEPBAR and HGMMA in each
-  sm90 flash kernel's SASS (``cuobjdump``), whose B1 listings are
-  written to ``--out`` (default ``build/flash_fwd_steps/``);
-- chip_smoke's bf16 mask cases and B1's schedule cases (each output row
-  within its allowance of an f32 reference, a tile left out shown to
-  break it), and B1 at the training shape run twice and replayed from a
-  CUDA graph (``chip_smoke._flash_rerun_and_graph``);
+  the counts of BSSY, BSYNC, WARPGROUP.ARRIVE, WARPGROUP.DEPBAR and
+  HGMMA in each sm90 flash kernel's SASS (``cuobjdump``) and a digest of
+  its instructions, whose B1 listings are written to ``--out`` (default
+  ``build/flash_fwd_steps/``);
+- chip_smoke's bf16 mask cases and its schedule cases, B1's and the
+  backward's (each output row within its allowance of an f32 reference,
+  a tile left out shown to break it), and B1-B3 at the training shape
+  run twice and replayed from a CUDA graph
+  (``chip_smoke._flash_rerun_and_graph``);
 - B1 at each of SHAPES: its out row by row against the f32 reference,
   its lse against it, and its time with a cold L2
   (``chip_smoke.time_ms``), the versions in turns (first to last, then
@@ -83,9 +85,19 @@ def build(label: str, source: Path):
     return lib, log
 
 
-def sass_report(label: str, lib: Path, out_dir: Path) -> None:
-    """Per sm90 flash kernel, its WARPGROUP.ARRIVE, WARPGROUP.DEPBAR and
-    HGMMA counts; B1's listings written to ``out_dir``."""
+# SASS instructions counted per sm90 flash kernel: convergence barriers
+# (a branch around each masked score leaves a BSSY/BSYNC pair), injected
+# and written arrives, waits and products
+SASS_OPS = ("BSSY", "BSYNC", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "HGMMA")
+
+
+def sass_report(label: str, lib: Path, out_dir: Path,
+                listed: str = "flash_fwd_kernel_sm90") -> None:
+    """Per sm90 flash kernel, its counts of SASS_OPS and a digest of its
+    instructions (without addresses, so that two builds of the same code
+    read the same); the listings of the ``listed`` kernel written to
+    ``out_dir`` with their order of products, waits, barriers and
+    exponentials."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
@@ -96,17 +108,21 @@ def sass_report(label: str, lib: Path, out_dir: Path) -> None:
         if kernel is None:
             continue
         counts = {op: len(re.findall(op.replace(".", r"\.") + r"\b", part))
-                  for op in ("WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR",
-                             "HGMMA")}
+                  for op in SASS_OPS}
+        code = re.sub(r"/\*[0-9a-f]{4,}\*/|0x[0-9a-f]+|\.L_x_\d+", "",
+                      part.split("\n", 1)[1])
+        digest = hashlib.sha256(code.encode()).hexdigest()[:12]
         print(f"  {label} {kernel.group(1)}<{kernel.group(2)}> SASS: "
-              + ", ".join(f"{op} {n}" for op, n in counts.items()))
-        if kernel.group(1) == "flash_fwd_kernel_sm90":
-            (out_dir / f"{label}-b1-{kernel.group(2)}.sass").write_text(part)
+              + ", ".join(f"{op} {n}" for op, n in counts.items())
+              + f"; digest {digest}")
+        if kernel.group(1) == listed:
+            (out_dir / f"{label}-{listed}-{kernel.group(2)}.sass"
+             ).write_text(part)
             print(f"    in order: {sass_order(part)}")
 
 
 def sass_order(listing: str) -> str:
-    """B1's listing as the order of its products (H: a run of HGMMA),
+    """A listing as the order of its products (H: a run of HGMMA),
     waits (W0, W1: WARPGROUP.DEPBAR.LE to 0 or 1 pending), named
     barriers (S: BAR.SYNC, A: BAR.ARV) and exponentials (E: a run of at
     least 8 MUFU.EX2), to show which waits precede the softmax."""
@@ -131,6 +147,30 @@ def sass_order(listing: str) -> str:
     return " ".join(m for m, n in runs if m != "E" or n >= 8)
 
 
+def build_versions(specs, sass: bool, out_dir: Path,
+                   listed: str = "flash_fwd_kernel_sm90") -> dict:
+    """{label: library} of ``LABEL=PATH`` specs, built in parallel, with
+    ptxas's wgmma notes and spill bytes of every sm90 flash kernel
+    printed (and, with ``sass``, sass_report's counts)."""
+    versions = [v.split("=", 1) for v in specs]
+    with ThreadPoolExecutor(len(versions)) as pool:
+        built = list(pool.map(lambda lv: build(lv[0], Path(lv[1])),
+                              versions))
+    libs = {}
+    for (label, _), (lib, log) in zip(versions, built):
+        libs[label] = lib
+        notes, spills = cs._wgmma_notes(log), cs._spills(log)
+        for fn in sorted(notes):
+            kernel = cs.SM90_FLASH_KERNEL.search(fn)
+            if kernel:
+                print(f"{label} {kernel.group(1)}<{kernel.group(2)}>: "
+                      f"ptxas's wgmma notes {notes[fn]}, spill bytes "
+                      f"{spills.get(fn)}")
+        if sass:
+            sass_report(label, lib, out_dir, listed)
+    return libs
+
+
 def use(lib: Path) -> None:
     """Routes ``fa``'s wrappers to ``lib`` (the argtypes are set on it by
     ``fa._kernel_library`` at its first call)."""
@@ -141,8 +181,9 @@ def use(lib: Path) -> None:
 def checks(gen) -> None:
     for name, (shape, mask) in cs.FLASH_BF16_CASES.items():
         cs._flash_bf16_case(name, shape, mask, gen)
-    for name, (shape, mask, tiles) in cs.FLASH_SCHEDULE_CASES.items():
-        cs._flash_bf16_case(name, shape, mask, gen, tiles)
+    for cases in (cs.FLASH_SCHEDULE_CASES, cs.FLASH_BWD_SCHEDULE_CASES):
+        for name, (shape, mask, tiles) in cases.items():
+            cs._flash_bf16_case(name, shape, mask, gen, tiles)
     cs._flash_rerun_and_graph(gen)
 
 
@@ -181,22 +222,7 @@ def main() -> int:
         print("flash_fwd_steps: no CUDA device", file=sys.stderr)
         return 2
     print(cs._card(quiet=True))
-    versions = [v.split("=", 1) for v in args.versions]
-    with ThreadPoolExecutor(len(versions)) as pool:
-        built = list(pool.map(lambda lv: build(lv[0], Path(lv[1])),
-                              versions))
-    libs = {}
-    for (label, _), (lib, log) in zip(versions, built):
-        libs[label] = lib
-        notes, spills = cs._wgmma_notes(log), cs._spills(log)
-        for fn in sorted(notes):
-            kernel = cs.SM90_FLASH_KERNEL.search(fn)
-            if kernel:
-                print(f"{label} {kernel.group(1)}<{kernel.group(2)}>: "
-                      f"ptxas's wgmma notes {notes[fn]}, spill bytes "
-                      f"{spills.get(fn)}")
-        if args.sass:
-            sass_report(label, lib, args.out)
+    libs = build_versions(args.versions, args.sass, args.out)
     if args.build_only:
         return 0
 

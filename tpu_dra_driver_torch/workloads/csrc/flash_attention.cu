@@ -51,78 +51,100 @@
 // which loops over the GQA group's heads itself: no atomics, and the
 // result does not change from run to run. Loops start and stop at the
 // causal, window and prefix bounds, so tiles wholly outside the band are
-// never loaded, and the items with the most tiles come first. dq and
-// dk/dv launch one CTA per item; the bf16 forward is persistent (below).
+// never loaded, and the items with the most tiles come first. The bf16
+// forward and dq are persistent (below); dk/dv and the f32 kernels
+// launch one CTA per item.
 //
 // bf16 forward (B1), dq (B2) and dk/dv (B3), sm_90a only, along the
 // lines of FlashAttention-3: a CTA is two consumer warpgroups and one
 // producer warp(group). The producer's one thread streams tiles with TMA
 // (128-byte swizzled panels of 64 columns; rows and columns past the
 // tensor's edge arrive as zeros) through a ring of shared memory guarded
-// by mbarriers (two stages in B1 and B3, three in B2), so the next tile
-// is in flight while the consumers multiply the current one. Each
-// consumer warpgroup owns 64 rows (B1, B2: q rows of a 128-row tile; B3:
-// KV rows of a 128-row tile), whose tiles (Q; Q, dO, lse and D; K and V)
-// arrive once:
+// by mbarriers, so the next tile is in flight while the consumers
+// multiply the current one. Each consumer warpgroup owns 64 rows (B1,
+// B2: q rows of a 128-row tile; B3: KV rows of a 128-row tile), whose
+// tiles (Q; Q, dO, lse and D; K and V) arrive once:
 // S = Q K^T (B2 also dP = dO V^T; B3: S^T = K Q^T and dP^T = V dO^T)
 // runs as wgmma from shared memory into registers; the online softmax
 // (B1) or P and dS (B2, B3) are formed on the accumulator fragment in
-// registers, with quad shuffles for the row max and sum, masked only on
-// tiles that cross the band's edge; P (B2: dS; B3: P^T, dS^T) is rounded
-// to bf16 in registers and is the register A operand of the next wgmma
-// (O += P V; dQ += dS K; dV += P^T dO, dK += dS^T Q) with B read MN-major
-// from the same swizzled tiles, so nothing is transposed in memory. O, m
-// and l (B2: dQ; B3: dK and dV) stay in registers for the whole walk and
-// are written once; setmaxnreg moves registers from the producer to the
-// consumers. B1 and B2 also pipeline their walks in the source: the
-// warpgroup issues the scores of tile j (B2: S and dP) and the second
-// product of tile j - 1, then waits only for the scores before its
-// softmax (B2: dS); B1's SASS shows where ptxas puts the second wait
-// (below). B2 streams K and V in 64-row tiles, so that dQ (HD / 2 f32 a
-// thread), S, dP and the dS operand fit the registers. Head dims up to
-// 64, up to 128 and up to 256 are three instantiations; the columns past
-// d are zero-filled by TMA and never stored.
+// registers; P (B2: dS; B3: P^T, dS^T) is rounded to bf16 in registers
+// and is the register A operand of the next wgmma (O += P V; dQ += dS K;
+// dV += P^T dO, dK += dS^T Q) with B read MN-major from the same
+// swizzled tiles, so nothing is transposed in memory. O, m and l (B2:
+// dQ; B3: dK and dV) stay in registers for the whole walk and are
+// written once, through a per-warp staging panel in shared memory as
+// 16-byte row segments (store_rows); setmaxnreg moves registers from the
+// producer to the consumers. Head dims up to 64, up to 128 and up to 256
+// are three instantiations; the columns past d are zero-filled by TMA
+// and never stored.
 //
-// B1 (redesigned a second time). Per KV tile each consumer warpgroup
-// issues S = Q K^T and O += P V (the previous tile's P), waits only for
-// S and runs the softmax, whose ex2 on the MUFU takes half the tensor
-// cores' time for the same tile at HD 128. Three things keep the tensor
-// cores fed:
-// - no serialised products: every register operand of a wgmma (S's and
-//   O's accumulators, P's A operand) is fenced above its wgmma.fence, so
-//   ptxas injects no warpgroup.arrive of its own (C7519); each product is
-//   waited for in the iteration that issued it (a wait across the loop's
-//   back edge makes ptxas serialise them all, C7514/C7515); and the mask
-//   is predicates without branches, under one uniform test of the tile,
-//   so the softmax is one basic block and not 64 guarded ones;
-// - ping-pong: the two warpgroups take turns on the tensor cores through
-//   two named barriers, so one's softmax runs under the other's products;
-// - persistent CTAs: one per SM walks the items with a static stride of
-//   the grid over the longest-first order (deterministic, no counter,
-//   safe under graph capture). K and V stages are released apart (K once
-//   S is done, V once P V is), and the next item's Q loads as soon as
-//   the last S has read Q, under the last P V and the epilogue, which
-//   stages each warp's 16 rows in shared memory and stores 16-byte row
-//   segments.
-// Stages: at HD 64 and 128, Q (16 or 32 KiB) and two stages of 128-row
-// K and V tiles (32 or 64 KiB a stage) beside the 16 KiB epilogue
-// staging; a third stage would not fit at 128. At HD 256, 64-row K/V
-// tiles (O is 128 f32 a thread, S 32) and two stages: Q alone is 64 KiB.
-// What bounds it: the tensor cores at full width (the MUFU at half their
-// time at HD 128 and a quarter at 256). ptxas still places the wait for
-// P V above the softmax's exponentials in the same block, so a
-// warpgroup's own softmax does not overlap its P V; the other
-// warpgroup's products fill that gap.
+// Three rules keep the tensor cores fed in all three:
+// - no serialised products: every register operand of a wgmma
+//   (accumulators, A operands) is fenced above its wgmma.fence, so ptxas
+//   injects no warpgroup.arrive of its own (C7519); the wait for a
+//   tile's data comes before that fence; each product is waited for in
+//   the iteration that issued it (a wait across the loop's back edge, or
+//   under a branch, makes ptxas serialise them all, C7514/C7515/C7517);
+//   releases are predicated arrives, not branches;
+// - the mask is predicates without branches (seen()), under one uniform
+//   test of the tile (unmasked()): a per-element branch made B1's
+//   softmax, and B2's and B3's P, 64 guarded blocks with convergence
+//   barriers on every score, unmasked tiles too;
+// - the walks are software pipelines: per tile the warpgroup issues the
+//   scores of tile j (B1: S; B2: S and dP; B3: S^T and dP^T) and the
+//   products of tile j - 1 (P V; dS K; P^T dO and dS^T Q), waits only
+//   for the scores, forms P (and dS) beside the other products, and
+//   rounds them to A operands once those are done.
 //
-// Head dim 256 (Gemma-class heads) keeps each kernel's shape where the
-// 227 KiB of shared memory and 240 registers a consumer thread allow it:
-// B1 streams K/V in 64-row tiles through two stages; B2 in 32-row tiles
-// through three (dQ 128, S and dP 16 each); B3 cannot hold dK and dV of
-// 64 rows x 256 (256 f32 a thread), so its CTA takes 64 KV rows and
-// splits the head dim over the two consumer warpgroups, each holding
-// half of dK and dV, as FlashAttention-3 does. Both warpgroups compute
-// the whole S^T and dP^T (a reduction over all of d), so B3 at 256 does
-// 1.5 times the products it needs.
+// B1. The two warpgroups take turns on the tensor cores through two
+// named barriers (ping-pong), so one's softmax runs under the other's
+// products. Persistent CTAs: one per SM walks the items with a static
+// stride of the grid over the longest-first order (fwd_tile:
+// deterministic, no counter, safe under graph capture). K and V stages
+// are released apart (K once S is done, V once P V is), and the next
+// item's Q loads as soon as the last S has read Q, under the last P V and
+// the epilogue. Stages: at HD 64 and 128, Q (16 or 32 KiB) and two
+// stages of 128-row K and V tiles (32 or 64 KiB a stage) beside the 16
+// KiB epilogue staging; a third stage would not fit at 128. At HD 256,
+// 64-row K/V tiles (O is 128 f32 a thread, S 32) and two stages: Q alone
+// is 64 KiB. ptxas still places the wait for P V above the softmax's
+// exponentials in the same block, so a warpgroup's own softmax does not
+// overlap its P V; the other warpgroup's products fill that gap.
+//
+// B2. Persistent over the same order as B1, K and V in 64-row tiles
+// (32 at HD 256) through three stages, so that dQ (HD / 2 f32 a thread),
+// S, dP and the dS operand fit the registers. Q, dO, lse and D of the
+// next item load once the last S and dP have read them, under the last
+// dQ product and the epilogue; at HD 256 Q and dO take 128 KiB and the
+// epilogue stages in the warpgroup's own dO tile, so there they load
+// after it. No ping-pong: the two warpgroups' walks interleave on the
+// tensor cores by themselves.
+//
+// B3. One CTA per item (at the training shape 512 CTAs, 3.9 waves), the
+// q walk pipelined through three stages of Q, dO, lse and D up to HD 128
+// (163 KiB with K and V) and two at 256. Up to HD 128 each warpgroup
+// owns 64 KV rows and the whole head dim: dK and dV (128 f32 a thread)
+// and S^T and dP^T (64) are live beside the P^T operand (16) at the
+// pipeline's peak, so dS^T goes to a 64 x 64 swizzled panel in shared
+// memory and dK += dS^T Q reads it there (with dS^T in registers too,
+// ptxas ran out of registers and serialised every product, C7512). At HD
+// 256 dK and dV of 64 rows x 256 would take 256 f32 a thread, so the CTA
+// takes 64 KV rows and the warpgroups split the head dim of dK and dV,
+// each holding half (as FlashAttention-3 does), and the scores: warpgroup
+// w computes S^T and dP^T of q rows [32 w, 32 w + 32) of each tile (P^T
+// kept in f32 until dS^T is formed, as the reference does), the two
+// trade their bf16 P^T and dS^T operands through shared memory under one
+// named barrier a tile, and each multiplies its half of dV and dK over
+// all 64 q rows, so no product is computed twice. That read no faster
+// than computing the scores twice (PERF.md): with 64 KV rows a CTA, B3
+// at 256 streams twice the Q and dO bytes per product that HD 128's
+// 128-row tiles do.
+//
+// Together B2 and B3 run 7 products a tile pair (B2: S, dP, dQ; B3: S^T,
+// dP^T, dV, dK), where a fused backward (dq accumulated across KV-tile
+// CTAs with atomics, as FlashAttention-3's) runs 5: the two kernels
+// match the reference's two `pallas_call`s and keep the result the same
+// from run to run.
 //
 // The f32 instantiations multiply with plain FMAs on 32-row tiles in
 // shared memory, so their comparison with the plain version is tight.
@@ -688,18 +710,20 @@ __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// mbar_arrive by the threads for which `pred` holds, without a branch
+// an mbarrier arrival by the threads for which `pred` holds, without a
+// branch
 __device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
       "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
       "r"((int)pred)
       : "memory");
+}
+
+// orders this thread's shared-memory writes before later TMA writes to
+// the same bytes (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint64_t global_ns() {
@@ -843,7 +867,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (+)= A . B, m64n64k16: A and B in shared memory, both K-major
+// d (+)= A . B, m64n64k16: A and B in shared memory, A K-major, B
+// K-major or, with TB = 1, MN-major
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -851,17 +877,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
-// d (+)= A . B, m64n128k16: A and B in shared memory, both K-major
+// d (+)= A . B, m64n128k16: A and B in shared memory, A K-major, B
+// K-major or, with TB = 1, MN-major
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -871,7 +899,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      " %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -883,7 +911,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 // d += A . B, m64n64k16: A in registers, B in shared memory MN-major
@@ -949,6 +977,79 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[M],
   }
 }
 
+// A warp's 16 rows of an m64nN f32 accumulator fragment (N = 2 * NH; the
+// warp's rows 16 w + l/4 + 8 r of the layout above), times mul[r], to
+// `out` + `first` (element offsets; row stride d; columns col0 + 0..N)
+// in bf16 or, with `f32`, in f32: through the warp's 2 KiB staging
+// panel, 128 bytes of each row at a time (64 bf16 or 32 f32 columns).
+// The fragment goes in as 4- or 8-byte pieces, 16-byte chunks XOR
+// swizzled by row so that neither side conflicts on a bank, and leaves
+// as one 16-byte store per chunk, a row's 128 bytes by 8 neighbouring
+// lanes. Rows from `rows` on and columns from d on are not stored.
+template <int NH>
+__device__ __forceinline__ void store_rows(const float (&acc)[NH],
+                                           const float (&mul)[2],
+                                           uint32_t* staged, void* out,
+                                           size_t first, int rows, int d,
+                                           int col0, int f32, int lane) {
+  const int qr = lane / 4;
+  auto drain = [&](int pass, int per_pass, int elem) {
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = 4 * k + lane / 8, c = lane % 8;
+      const int col = col0 + pass * 8 * per_pass + c * per_pass;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          staged + row * 32 + ((c ^ (row & 7)) * 4));
+      if (row < rows && col < d)
+        *reinterpret_cast<uint4*>(static_cast<char*>(out) +
+                                  (first + (size_t)row * d + col) * elem) = v;
+    }
+    __syncwarp();
+  };
+  if (f32) {
+#pragma unroll
+    for (int p = 0; p < NH / 16; ++p) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = 4 * p + c, row = qr + 8 * r;
+          const int chunk = 2 * c + (lane % 4) / 2;
+          *reinterpret_cast<float2*>(staged + row * 32 +
+                                     ((chunk ^ (row & 7)) * 4) +
+                                     (lane & 1) * 2) =
+              make_float2(acc[4 * j + 2 * r] * mul[r],
+                          acc[4 * j + 2 * r + 1] * mul[r]);
+        }
+      drain(p, 4, 4);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NH / 32; ++p) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = 8 * p + c, row = qr + 8 * r;
+          staged[row * 32 + ((c ^ qr) * 4) + lane % 4] =
+              pack_bf16(acc[4 * j + 2 * r] * mul[r],
+                        acc[4 * j + 2 * r + 1] * mul[r]);
+        }
+      drain(p, 8, 2);
+    }
+  }
+}
+
+// d += A . B with A in shared memory K-major (descriptor `da`) and B in
+// shared memory MN-major at `b`, as wgmma_rs_mn's: N = 64 or 128
+template <int M>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[M], uint64_t da,
+                                            uint32_t b, uint32_t panel) {
+  static_assert(M <= 64, "N is at most 128");
+  wgmma_ss<1>(d, da, desc(b, panel, kAtom), 1);
+}
+
 // global rows [r0, r1] x columns [c0, c1] all visible: no mask needed
 __device__ __forceinline__ bool unmasked(const Args& a, int r0, int r1,
                                          int c0, int c1) {
@@ -959,8 +1060,8 @@ __device__ __forceinline__ bool unmasked(const Args& a, int r0, int r1,
 
 // ---------------------------------------------------- B1 forward, bf16
 
-// visible() as predicates and no branches, so that B1's softmax on a
-// masked tile stays one basic block (B2, B3 and the f32 kernels keep
+// visible() as predicates and no branches, so that B1's softmax and B2's
+// and B3's P on a masked tile stay one basic block (the f32 kernels keep
 // visible())
 __device__ __forceinline__ bool seen(const Args& a, int r, int c) {
   const bool band = (r >= c) & ((a.window == 0) | (r - c < a.window));
@@ -980,6 +1081,10 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128)
                : "memory");
+}
+// a named barrier of one warpgroup's 128 threads
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 template <int HD> struct Fwd {
@@ -1288,12 +1393,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       kv += n;
 
-      // out = O / l through the warp's staging panel, 64 columns at a
-      // time: the fragment goes in as 4-byte pairs (16-byte chunks XOR
-      // swizzled by row, so neither side conflicts on a bank) and leaves
-      // as one 16-byte store per 8 columns, a row's 128 bytes by 8
-      // neighbouring lanes. lse straight from the fragment.
-      const int d = a.d;
+      // out = O / l through the warp's staging panel (store_rows); lse
+      // straight from the fragment
       const int q0 = w.i0 + kRows * wg + 16 * warp;   // the warp's first row
       float inv[2];
 #pragma unroll
@@ -1304,59 +1405,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (a.lse_out != nullptr && lane % 4 == 0 && qi < a.t)
           a.lse_out[(size_t)w.bh * a.t + qi] = (m[r] + log2f(li)) / kLog2e;
       }
-      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
-                           ((size_t)w.bh * a.t + q0) * d;
-#pragma unroll
-      for (int p = 0; p < L::kPanels; ++p) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int j = 8 * p + c;
-            const int row = qr + 8 * r;
-            staged[row * 32 + ((c ^ qr) * 4) + lane % 4] =
-                pack_bf16(o[4 * j + 2 * r] * inv[r],
-                          o[4 * j + 2 * r + 1] * inv[r]);
-          }
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int row = 4 * k + lane / 8, c = lane % 8;
-          const int col = 64 * p + 8 * c;
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              staged + row * 32 + ((c ^ (row & 7)) * 4));
-          if (q0 + row < a.t && col < d)
-            *reinterpret_cast<uint4*>(out + (size_t)row * d + col) = v;
-        }
-        __syncwarp();
-      }
+      store_rows(o, inv, staged, a.out, ((size_t)w.bh * a.t + q0) * a.d,
+                 a.t - q0, a.d, 0, 0, lane);
     }
   }
-}
-
-// two adjacent gradient values at element i (even) of a bf16 kernel's
-// output, rounded to bf16, or as they are when the output is f32
-__device__ __forceinline__ void store2(void* base, size_t i, float x, float y,
-                                       int f32) {
-  if (f32)
-    *reinterpret_cast<float2*>(static_cast<float*>(base) + i) =
-        make_float2(x, y);
-  else
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) +
-                                       i) = __floats2bfloat162_rn(x, y);
 }
 
 // ------------------------------------------------------ B3 dk/dv, bf16
 
 template <int HD> struct Dkv {
   static constexpr int kBQ = 64;            // q rows per ring stage
-  static constexpr int kStages = 2;
-  static constexpr int kPanels = HD / 64;
   // up to HD 128 each consumer warpgroup owns 64 KV rows of a 128-row
   // tile, all of the head dim; at HD 256 the CTA owns 64 KV rows and each
   // warpgroup half of the head dim of them (dK and dV of 64 x 256 would
   // take 256 f32 registers a thread)
   static constexpr bool kSplit = HD > 128;
+  // q rows of a tile whose scores a warpgroup computes: at HD 256 each
+  // takes half, so that no product is computed twice
+  static constexpr int kQw = kSplit ? kBQ / kConsumers : kBQ;
+  // three stages up to HD 128: the pipelined walk holds tiles it - 1 (for
+  // dV and dK) and it (for S^T and dP^T) while the producer fills the
+  // next; at HD 256 two fit
+  static constexpr int kStages = kSplit ? 2 : 3;
+  static constexpr int kPanels = HD / 64;
   static constexpr int kHdWg = kSplit ? HD / kConsumers : HD;
   static constexpr int kKvBlocks = kSplit ? 1 : kConsumers;  // 64-row ones
   static constexpr int kCols = kKvBlocks * kRows;            // KV rows a CTA
@@ -1364,29 +1435,50 @@ template <int HD> struct Dkv {
   static constexpr uint32_t kQt = kPanels * kBQ * kPanelRow;      // Q or dO
   static constexpr uint32_t kRowVec = kBQ * 4;                    // lse or D
   // lse and D padded so that every stage starts on a 1024-byte swizzle
-  // atom, as the swizzled tiles need
+  // atom, as the swizzled tiles need; the mbarriers (kv, full[S],
+  // empty[S]) live in the first stage's pad
   static constexpr uint32_t kStage = 2 * kQt + 1024;
   static constexpr uint32_t kLoaded = 2 * kQt + 2 * kRowVec;  // per stage
-  static_assert(2 * kRowVec <= 1024, "lse and D fit the pad");
+  static_assert(2 * kRowVec + 8 * (1 + 2 * kStages) <= 1024,
+                "lse, D and the barriers fit the pad");
   static constexpr uint32_t kK = 0;
   static constexpr uint32_t kV = kK + kKvBlocks * kKvWg;
   static constexpr uint32_t kRing = kV + kKvBlocks * kKvWg;
-  static constexpr uint32_t kBars = kRing + kStages * kStage;
-  // kv, full[S], empty[S]; + slack to align the base to 1024
-  static constexpr uint32_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kBars = kRing + 2 * kQt + 2 * kRowVec;
+  // 32 KiB past the ring. Up to HD 128: the epilogue's staging (a warp's
+  // 16 rows of one 128-byte column block, 8 warps: 16 KiB), then each
+  // warpgroup's dS^T as a 64 x 64 panel, 128-byte swizzled as a TMA tile:
+  // the A operand of dK += dS^T Q read from shared memory, so that the
+  // pipelined walk needs no dS^T registers. At HD 256: the bf16 P^T and
+  // dS^T operands of each warpgroup's half of the tile, for the other
+  // warpgroup, as fragments (each thread's values where the same thread
+  // of the other reads them), in two buffers by the tile's parity; the
+  // staging after the walk.
+  static constexpr uint32_t kX = kRing + kStages * kStage;
+  static constexpr uint32_t kStageOut = 16 * kPanelRow;
+  static constexpr uint32_t kDs = kX + kConsumers * 4 * kStageOut;
+  static constexpr uint32_t kDsPanel = kRows * kPanelRow;
+  static constexpr uint32_t kTrade = 2 * (kQw / 16) * 4 * 4 * 128;  // bytes
+  static_assert(kSplit ? 2 * kConsumers * kTrade == 32768
+                       : kDs + kConsumers * kDsPanel == kX + 32768,
+                "32 KiB past the ring");
+  static constexpr uint32_t kSmem = kX + 32768 + 1024;  // + base alignment
   static_assert(kSmem <= kMaxSmem, "B3's tiles fit the shared memory");
 };
 
 // B3 in bf16, replaces `_flash_bwd_dkv_kernel` (ops/attention.py:635).
-// One CTA per (kCols-row KV tile, b * h_kv); consumer warpgroup w owns KV
-// rows [64 w, 64 w + 64) of the tile (at HD 256: the tile's 64 rows, head
-// dim columns [128 w, 128 w + 128)) and keeps their dK and dV in
-// registers while the CTA walks every head of its GQA group and the q
-// tiles that can see its columns: no atomics, the same result from run
-// to run. Per q tile: S^T = K Q^T and dP^T = V dO^T by wgmma from shared
-// memory (over the whole head dim), P^T and dS^T = P^T (dP^T - D) on the
-// fragments, then dV += P^T dO and dK += dS^T Q (the warpgroup's columns
-// of dO and Q) with P^T and dS^T from registers.
+// One CTA per (kCols-row KV tile, b * h_kv); the CTA walks every head of
+// its GQA group and the q tiles that can see its columns, and keeps dK
+// and dV in registers: no atomics, the same result from run to run. Per
+// q tile: S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory, P^T
+// and dS^T = P^T (dP^T - D) on the fragments, then dV += P^T dO and dK
+// += dS^T Q. Up to HD 128 consumer warpgroup w owns KV rows [64 w, 64 w
+// + 64) of the tile, P^T is the register A operand and dS^T is read from
+// the warpgroup's panel in shared memory. At HD 256 the two warpgroups
+// share the tile's 64 KV rows: warpgroup w computes the scores of q rows
+// [32 w, 32 w + 32) of each q tile, the two trade their bf16 P^T and
+// dS^T halves through shared memory (one named barrier a tile), and each
+// multiplies its half of the head dim of dV and dK over all 64 q rows.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
@@ -1398,11 +1490,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const Args a) {
   using L = Dkv<HD>;
   constexpr int kBQ = L::kBQ;
+  constexpr int kQw = L::kQw;
+  constexpr int kS = L::kStages;
+  // named barriers: the two warpgroups' trade (HD 256), and each
+  // warpgroup's threads having written its dS^T panel (up to 128)
+  constexpr int kTraded = 1, kPanelDone = 2;        // + wg
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t bar_kv = base + L::kBars;
   const uint32_t bar_full = bar_kv + 8;             // + 8 s
-  const uint32_t bar_empty = bar_full + 8 * L::kStages;
+  const uint32_t bar_empty = bar_full + 8 * kS;
 
   const int kvh = blockIdx.x;                       // b * h_kv + kv head
   const int c0 = blockIdx.y * L::kCols;             // longest causal first
@@ -1417,7 +1514,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < L::kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one per warp
     }
@@ -1442,9 +1539,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                       c0 + kRows * w, kvh);
         }
       for (int it = 0; it < n; ++it) {
-        const int s = it % L::kStages;
-        if (it >= L::kStages)
-          mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
+        const int s = it % kS;
+        if (it >= kS) mbar_wait(bar_empty + 8 * s, ((it / kS) - 1) & 1);
         const int bh = bb * a.h + hk * group + it / tiles;
         const int i0 = (lo + it % tiles) * kBQ;
         const uint32_t st = base + L::kRing + s * L::kStage;
@@ -1476,101 +1572,246 @@ __global__ void __launch_bounds__(kThreads, 1)
     // and their panels' offset in a Q or dO tile
     const int col0 = L::kSplit ? wg * L::kHdWg : 0;
     const uint32_t qpanel = (col0 / 64) * kBQ * kPanelRow;
+    // the q rows of a tile whose scores this warpgroup computes, and (at
+    // HD 256) the other warpgroup's
+    const int qw = L::kSplit ? wg * kQw : 0;
+    const int qo = L::kSplit ? (1 - wg) * kQw : 0;
     const float qk_scale = a.scale * kLog2e;
-    const float* ring = reinterpret_cast<const float*>(
-        smem_raw + (base - smem_addr(smem_raw)) + L::kRing);
+    unsigned char* smem = smem_raw + (base - smem_addr(smem_raw));
+    uint32_t* staged = reinterpret_cast<uint32_t*>(
+        smem + L::kX + (wg * 4 + warp) * L::kStageOut);
+    // up to HD 128: this warpgroup's dS^T panel
+    const uint32_t ds_s = base + L::kDs + wg * L::kDsPanel;
+    uint32_t* ds_panel =
+        reinterpret_cast<uint32_t*>(smem + L::kDs + wg * L::kDsPanel);
+    // at HD 256: the trade's buffer of warpgroup w for tiles of parity p
+    auto trade_buf = [&](int p, int w) {
+      return reinterpret_cast<uint4*>(smem + L::kX +
+                                      (2 * p + w) * L::kTrade) + t;
+    };
+
+    auto ready = [&](int it) {
+      mbar_wait(bar_full + 8 * (it % kS), (it / kS) & 1);
+    };
+    auto release = [&](int it) {
+      mbar_arrive_if(bar_empty + 8 * (it % kS), lane == 0);
+    };
+    auto stage = [&](int it) { return base + L::kRing + (it % kS) * L::kStage; };
+    // lse and D of tile `it`'s q rows
+    auto row_vecs = [&](int it) {
+      return reinterpret_cast<const float*>(smem + L::kRing +
+                                            (it % kS) * L::kStage +
+                                            2 * L::kQt);
+    };
+    // A . B^T over the whole head dim into x: A the 64 KV rows at `ka`,
+    // B the warpgroup's q rows of the tile at `qb` (both K-major), not
+    // committed
+    auto scores = [&](float (&x)[kQw / 2], uint32_t ka, uint32_t qb) {
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
+        const uint32_t qoff =
+            (k / 4) * kBQ * kPanelRow + qw * kPanelRow + (k % 4) * 32;
+        wgmma_ss(x, desc(ka + off, 16, kAtom), desc(qb + qoff, 16, kAtom),
+                 k > 0);
+      }
+    };
+    // P^T = exp2(S^T scale log2e - lse log2e) in st and dS^T = P^T (dP^T
+    // - D) in dpt, in place, f32, on the fragments (KV row kc + 8 (e / 2),
+    // q row qw + 8 j + qc + e % 2); lse and D read once per row. Then the
+    // mask as predicates under one uniform test of the tile: the pairs it
+    // hides, and q rows past t, selected to 0 (p may be inf there)
+    auto form = [&](float (&st)[kQw / 2], float (&dpt)[kQw / 2], int it) {
+      const float* lse = row_vecs(it) + qw;
+      const float* dd = lse + kBQ;
+#pragma unroll
+      for (int j = 0; j < kQw / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 8 * j + qc + c;
+          const float l2 = lse[r] * kLog2e, dr = dd[r];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c;
+            st[e] = ex2(st[e] * qk_scale - l2);
+            dpt[e] = st[e] * (dpt[e] - dr);
+          }
+        }
+      const int i0 = (lo + it % tiles) * kBQ;
+      const int g0 = a.row_offset + i0;
+      if (!(i0 + kBQ <= a.t &&
+            unmasked(a, g0, g0 + kBQ - 1, cw, cw + kRows - 1))) {
+#pragma unroll
+        for (int j = 0; j < kQw / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = qw + 8 * j + qc + e % 2;
+            if (!((i0 + r < a.t) & seen(a, g0 + r, kc + 8 * (e / 2)))) {
+              st[4 * j + e] = 0.f;
+              dpt[4 * j + e] = 0.f;
+            }
+          }
+      }
+    };
 
     float dk[L::kHdWg / 2], dv[L::kHdWg / 2];
 #pragma unroll
     for (int i = 0; i < L::kHdWg / 2; ++i) dk[i] = dv[i] = 0.f;
+    // S^T and dP^T of the warpgroup's q rows; the A operands of its own
+    // rows (P^T; dS^T at HD 256) and, at HD 256, of the other's
+    constexpr int kOther = L::kSplit ? kQw / 16 : 1;
+    float st[kQw / 2], dpt[kQw / 2];
+    uint32_t pa[kQw / 16][4], dsa[kOther][4];
+    uint32_t pa_o[kOther][4], dsa_o[kOther][4];
 
-    mbar_wait(bar_kv, 0);
-    for (int it = 0; it < n; ++it) {
-      const int s = it % L::kStages;
-      const int i0 = (lo + it % tiles) * kBQ;
-      const uint32_t q_st = base + L::kRing + s * L::kStage;
-      const uint32_t do_st = q_st + L::kQt;
-      const float* lse = ring + (s * L::kStage + 2 * L::kQt) / 4;
-      const float* dd = lse + kBQ;
-
-      float st[kBQ / 2], dpt[kBQ / 2];
-      mbar_wait(bar_full + 8 * s, (it / L::kStages) & 1);
-      wg_fence();
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
-        const uint32_t qoff = (k / 4) * kBQ * kPanelRow + (k % 4) * 32;
-        wgmma_ss(st, desc(k_s + off, 16, kAtom), desc(q_st + qoff, 16, kAtom),
-                 k > 0);
-      }
-#pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
-        const uint32_t qoff = (k / 4) * kBQ * kPanelRow + (k % 4) * 32;
-        wgmma_ss(dpt, desc(v_s + off, 16, kAtom),
-                 desc(do_st + qoff, 16, kAtom), k > 0);
-      }
-      wg_commit();
-      wg_wait<0>();
+    auto fence_scores = [&]() {
       fence_regs(st);
       fence_regs(dpt);
-
-      // P^T (set to 0 where the mask hides the pair, and for q rows past
-      // t) and dS^T = P^T (dP^T - D), on the fragments: KV row kc + 8 i,
-      // q row i0 + 8 j + qc + e
-      const int g0 = a.row_offset + i0;
-      const bool full = i0 + kBQ <= a.t &&
-                        unmasked(a, g0, g0 + kBQ - 1, cw, cw + kRows - 1);
-#pragma unroll
-      for (int j = 0; j < kBQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 8 * j + qc + e % 2;
-          float p = ex2(st[4 * j + e] * qk_scale - lse[r] * kLog2e);
-          if (!full && !(i0 + r < a.t && visible(a, g0 + r, kc + 8 * (e / 2))))
-            p = 0.f;
-          st[4 * j + e] = p;
-          dpt[4 * j + e] = p * (dpt[4 * j + e] - dd[r]);
-        }
-      uint32_t pa[kBQ / 16][4], dsa[kBQ / 16][4];
-      to_a_operand<kBQ>(st, pa);
-      to_a_operand<kBQ>(dpt, dsa);
-
-      wg_fence();
-#pragma unroll
-      for (int k = 0; k < kBQ / 16; ++k)
-        wgmma_rs_mn(dv, pa[k], do_st + qpanel + k * 16 * kPanelRow,
-                    kBQ * kPanelRow);
-#pragma unroll
-      for (int k = 0; k < kBQ / 16; ++k)
-        wgmma_rs_mn(dk, dsa[k], q_st + qpanel + k * 16 * kPanelRow,
-                    kBQ * kPanelRow);
-      wg_commit();
-      wg_wait<0>();
+    };
+    // dV's and dK's accumulators and register operands
+    auto fence_products = [&]() {
       fence_regs(dk);
       fence_regs(dv);
       fence_regs(pa);
-      fence_regs(dsa);
-      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      if constexpr (L::kSplit) {
+        fence_regs(dsa);
+        fence_regs(pa_o);
+        fence_regs(dsa_o);
+      }
+    };
+    // the scores of tile `it`, issued and committed
+    auto issue_scores = [&](int it) {
+      const uint32_t q_st = stage(it);
+      scores(st, k_s, q_st);
+      scores(dpt, v_s, q_st + L::kQt);
+      wg_commit();
+    };
+    // dV += P^T dO and dK += dS^T Q of tile `it` (the warpgroup's
+    // columns of dO and Q, MN-major; K = the q rows), issued and
+    // committed
+    auto issue_dkv = [&](int it) {
+      const uint32_t q_st = stage(it) + qpanel;
+      const uint32_t do_st = q_st + L::kQt;
+#pragma unroll
+      for (int k = 0; k < kQw / 16; ++k) {
+        const uint32_t row = (qw + 16 * k) * kPanelRow;
+        wgmma_rs_mn(dv, pa[k], do_st + row, kBQ * kPanelRow);
+        if constexpr (L::kSplit)
+          wgmma_rs_mn(dk, dsa[k], q_st + row, kBQ * kPanelRow);
+        else
+          wgmma_ss_mn(dk, desc(ds_s + k * 32, 16, kAtom), q_st + row,
+                      kBQ * kPanelRow);
+      }
+      if constexpr (L::kSplit) {
+#pragma unroll
+        for (int k = 0; k < kQw / 16; ++k) {
+          const uint32_t row = (qo + 16 * k) * kPanelRow;
+          wgmma_rs_mn(dv, pa_o[k], do_st + row, kBQ * kPanelRow);
+          wgmma_rs_mn(dk, dsa_o[k], q_st + row, kBQ * kPanelRow);
+        }
+      }
+      wg_commit();
+    };
+    // once tile `it - 1`'s dV and dK are done: P^T and dS^T of tile `it`
+    // rounded to the A operands; up to HD 128 dS^T goes to the panel, at
+    // HD 256 the warpgroups trade theirs
+    auto to_operands = [&](int it) {
+      to_a_operand<kQw>(st, pa);
+      if constexpr (!L::kSplit) {
+        // row 16 warp + qr + 8 i, 16-byte chunk j XOR swizzled by the
+        // row (its row mod 8 is qr)
+#pragma unroll
+        for (int j = 0; j < kBQ / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            ds_panel[(16 * warp + qr + 8 * i) * 32 + ((j ^ qr) * 4) +
+                     lane % 4] = pack_bf16(dpt[4 * j + 2 * i],
+                                           dpt[4 * j + 2 * i + 1]);
+        fence_proxy_async();        // before the wgmma that reads it
+        wg_sync(kPanelDone + wg);
+      } else {
+        to_a_operand<kQw>(dpt, dsa);
+        uint4* mine = trade_buf(it & 1, wg);
+        const uint4* theirs = trade_buf(it & 1, 1 - wg);
+#pragma unroll
+        for (int k = 0; k < kQw / 16; ++k) {
+          mine[(2 * k) * 128] = make_uint4(pa[k][0], pa[k][1], pa[k][2],
+                                           pa[k][3]);
+          mine[(2 * k + 1) * 128] = make_uint4(dsa[k][0], dsa[k][1],
+                                               dsa[k][2], dsa[k][3]);
+        }
+        named_sync(kTraded);
+#pragma unroll
+        for (int k = 0; k < kQw / 16; ++k) {
+          const uint4 p = theirs[(2 * k) * 128], d = theirs[(2 * k + 1) * 128];
+          pa_o[k][0] = p.x;
+          pa_o[k][1] = p.y;
+          pa_o[k][2] = p.z;
+          pa_o[k][3] = p.w;
+          dsa_o[k][0] = d.x;
+          dsa_o[k][1] = d.y;
+          dsa_o[k][2] = d.z;
+          dsa_o[k][3] = d.w;
+        }
+      }
+    };
+
+    // Software pipeline over the q walk, as B2's: the tensor cores get
+    // the scores of tile it, then dV and dK of tile it - 1; the warpgroup
+    // waits only for the scores, forms P^T and dS^T beside the dV and dK
+    // products, and rounds them to the A operands once those are done.
+    // Register operands are fenced above each wgmma.fence, each product
+    // is waited for in the iteration that issued it, and releases are
+    // predicated. At HD 256 the trade's buffers alternate by the tile's
+    // parity: a warpgroup writes one only after the next trade's barrier,
+    // which the other passes only once it has read it.
+    mbar_wait(bar_kv, 0);
+    if (n > 0) {
+      ready(0);
+      fence_scores();
+      wg_fence();
+      issue_scores(0);
+      wg_wait<0>();
+      fence_scores();
+      form(st, dpt, 0);
+      to_operands(0);
+    }
+    for (int it = 1; it < n; ++it) {
+      ready(it);
+      fence_scores();
+      fence_products();
+      wg_fence();
+      issue_scores(it);
+      issue_dkv(it - 1);
+      wg_wait<1>();                 // the scores of tile it are in
+      fence_scores();
+      form(st, dpt, it);
+      fence_scores();
+      wg_wait<0>();
+      fence_products();             // tile it - 1's operands stay put
+      release(it - 1);
+      to_operands(it);
+    }
+    if (n > 0) {
+      fence_products();
+      wg_fence();
+      issue_dkv(n - 1);
+      wg_wait<0>();
+      fence_products();
+      release(n - 1);
     }
 
-    // dk = dS^T Q / sqrt(d) and dv, straight from the fragments
-    const int d = a.d;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = kc + 8 * i;
-      if (c >= a.tkv) continue;
-      const size_t row = ((size_t)kvh * a.tkv + c) * d;
-#pragma unroll
-      for (int j = 0; j < L::kHdWg / 8; ++j) {
-        const int col = col0 + 8 * j + qc;
-        if (col >= d) continue;
-        store2(a.dk, row + col, dk[4 * j + 2 * i] * a.scale,
-               dk[4 * j + 2 * i + 1] * a.scale, a.grad_f32);
-        store2(a.dv, row + col, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1],
-               a.grad_f32);
-      }
-    }
+    // dk = dS^T Q / sqrt(d) and dv through the warp's staging panel (at
+    // HD 256 in the trade's buffers, once both warpgroups have read the
+    // last trade)
+    if constexpr (L::kSplit) named_sync(kTraded);
+    const int r0 = cw + 16 * warp;                    // the warp's first row
+    const size_t first = ((size_t)kvh * a.tkv + r0) * a.d;
+    const float scale[2] = {a.scale, a.scale}, one[2] = {1.f, 1.f};
+    store_rows(dk, scale, staged, a.dk, first, a.tkv - r0, a.d, col0,
+               a.grad_f32, lane);
+    store_rows(dv, one, staged, a.dv, first, a.tkv - r0, a.d, col0,
+               a.grad_f32, lane);
   }
 }
 
@@ -1587,6 +1828,12 @@ template <int HD> struct Dq {
   static constexpr uint32_t kQWg = kPanels * kRows * kPanelRow;  // Q or dO
   static constexpr uint32_t kKv = kPanels * kBN * kPanelRow;     // K or V
   static constexpr uint32_t kRowVec = kConsumers * kRows * 4;    // lse or D
+  // a warp's 16 rows of one 128-byte column block, staged for 16-byte
+  // stores: in a panel of their own up to HD 128; at HD 256 in the
+  // warpgroup's dO tile, whose last reader (dP) is done by then, so the
+  // next item's Q and dO load only after the epilogue there
+  static constexpr bool kOwnStaging = HD <= 128;
+  static constexpr uint32_t kStageOut = 16 * kPanelRow;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDo = kQ + kConsumers * kQWg;
   static constexpr uint32_t kLse = kDo + kConsumers * kQWg;
@@ -1595,20 +1842,24 @@ template <int HD> struct Dq {
   static constexpr uint32_t kK = kLse + 1024;
   static_assert(2 * kRowVec <= 1024, "lse and D fit the pad");
   static constexpr uint32_t kV = kK + kStages * kKv;
-  static constexpr uint32_t kBars = kV + kStages * kKv;
-  // q, full[S], empty[S]; + slack to align the base to 1024
-  static constexpr uint32_t kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kOut = kV + kStages * kKv;
+  static constexpr uint32_t kBars =
+      kOut + (kOwnStaging ? kConsumers * 4 * kStageOut : 0);
+  // q_full, q_empty, full[S], empty[S]; + slack to align the base to 1024
+  static constexpr uint32_t kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;
   static_assert(kSmem <= kMaxSmem, "B2's tiles fit the shared memory");
 };
 
-// B2 in bf16, replaces `_flash_bwd_dq_kernel` (ops/attention.py:528). One
-// CTA per (128-row q tile, b * h), the longest causal rows first;
-// consumer warpgroup w owns q rows [64 w, 64 w + 64) of the tile and
-// keeps their dQ in registers while the producer streams the KV tiles
-// the rows can see, kBN rows at a time. Per KV tile: S = Q K^T and dP =
-// dO V^T by wgmma from shared memory, P = exp2(S scale log2e - lse
-// log2e) and dS = P (dP - D) on the fragments, then dQ += dS K with dS
-// from registers and K read MN-major from the same swizzled tile.
+// B2 in bf16, replaces `_flash_bwd_dq_kernel` (ops/attention.py:528).
+// Persistent, as B1: gridDim.x CTAs (one per SM) walk the (128-row q
+// tile, b * h) work items of the longest-first order (fwd_tile) with a
+// stride of gridDim.x. Consumer warpgroup w owns q rows [64 w, 64 w + 64)
+// of each item and keeps their dQ in registers while the producer
+// streams the KV tiles the rows can see, kBN rows at a time. Per KV
+// tile: S = Q K^T and dP = dO V^T by wgmma from shared memory, P =
+// exp2(S scale log2e - lse log2e) and dS = P (dP - D) on the fragments,
+// then dQ += dS K with dS from registers and K read MN-major from the
+// same swizzled tile.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
@@ -1620,25 +1871,23 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const Args a) {
   using L = Dq<HD>;
   constexpr int kBN = L::kBN;
+  constexpr int kS = L::kStages;
+  constexpr int kTile = kConsumers * kRows;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t bar_q = base + L::kBars;
-  const uint32_t bar_full = bar_q + 8;              // + 8 s
-  const uint32_t bar_empty = bar_full + 8 * L::kStages;
-
-  const int bh = blockIdx.x;
-  const int i0 = (gridDim.y - 1 - blockIdx.y) * (kConsumers * kRows);
-  const int rows = min(kConsumers * kRows, a.t - i0);
-  const int kvh = (bh / a.h) * a.h_kv + (bh % a.h) / (a.h / a.h_kv);
-  int lo, hi;
-  kv_tiles(a, a.row_offset + i0, a.row_offset + i0 + rows - 1, kBN, &lo, &hi);
-  const int n = hi - lo;
+  const uint32_t bar_q_full = base + L::kBars;
+  const uint32_t bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_full = bar_q_empty + 8;        // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kS;
+  const int n_qt = (a.t + kTile - 1) / kTile;
+  const int n_items = n_qt * a.b * a.h;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < L::kStages; ++s) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, kConsumers * 4);         // one per warp
+    for (int s = 0; s < kS; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kConsumers * 4);  // one per warp
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1649,31 +1898,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
-      // q rows wholly past t are not loaded; their rows are never stored.
-      // lse and D of rows past t are the next head's (or zeros): masked
-      const int live = (rows + kRows - 1) / kRows;
-      mbar_expect(bar_q, 2 * live * L::kQWg + 2 * L::kRowVec);
-      for (int w = 0; w < live; ++w)
-        for (int p = 0; p < L::kPanels; ++p) {
-          const uint32_t off = w * L::kQWg + p * kRows * kPanelRow;
-          tma_load_3d(base + L::kQ + off, &tm_q, bar_q, 64 * p,
-                      i0 + kRows * w, bh);
-          tma_load_3d(base + L::kDo + off, &tm_do, bar_q, 64 * p,
-                      i0 + kRows * w, bh);
-        }
-      tma_load_2d(base + L::kLse, &tm_lse, bar_q, bh * a.t + i0, 0);
-      tma_load_2d(base + L::kDd, &tm_dd, bar_q, bh * a.t + i0, 0);
-      for (int it = 0; it < n; ++it) {
-        const int s = it % L::kStages;
-        if (it >= L::kStages)
-          mbar_wait(bar_empty + 8 * s, ((it / L::kStages) - 1) & 1);
-        const int c0 = (lo + it) * kBN;
-        const uint32_t bar = bar_full + 8 * s;
-        mbar_expect(bar, 2 * L::kKv);
-        for (int p = 0; p < L::kPanels; ++p) {
-          const uint32_t off = s * L::kKv + p * kBN * kPanelRow;
-          tma_load_3d(base + L::kK + off, &tm_k, bar, 64 * p, c0, kvh);
-          tma_load_3d(base + L::kV + off, &tm_v, bar, 64 * p, c0, kvh);
+      int kv = 0;                     // KV tiles loaded, over all items
+      int item = 0;                   // items loaded
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++item) {
+        const FwdTile w = fwd_tile<kTile, kBN>(a, i, n_qt);
+        // the next item's Q, dO, lse and D once both warpgroups are done
+        // with the last one's. q rows wholly past t are not loaded; their
+        // rows are never stored. lse and D of rows past t are the next
+        // head's (or zeros): masked
+        if (item > 0) mbar_wait(bar_q_empty, (item - 1) & 1);
+        const int live = (w.rows + kRows - 1) / kRows;
+        mbar_expect(bar_q_full, 2 * live * L::kQWg + 2 * L::kRowVec);
+        for (int h = 0; h < live; ++h)
+          for (int p = 0; p < L::kPanels; ++p) {
+            const uint32_t off = h * L::kQWg + p * kRows * kPanelRow;
+            tma_load_3d(base + L::kQ + off, &tm_q, bar_q_full, 64 * p,
+                        w.i0 + kRows * h, w.bh);
+            tma_load_3d(base + L::kDo + off, &tm_do, bar_q_full, 64 * p,
+                        w.i0 + kRows * h, w.bh);
+          }
+        tma_load_2d(base + L::kLse, &tm_lse, bar_q_full, w.bh * a.t + w.i0,
+                    0);
+        tma_load_2d(base + L::kDd, &tm_dd, bar_q_full, w.bh * a.t + w.i0, 0);
+        for (int it = 0; it < w.n; ++it, ++kv) {
+          const int s = kv % kS;
+          if (kv >= kS) mbar_wait(bar_empty + 8 * s, ((kv / kS) - 1) & 1);
+          const int c0 = (w.lo + it) * kBN;
+          const uint32_t bar = bar_full + 8 * s;
+          mbar_expect(bar, 2 * L::kKv);
+          for (int p = 0; p < L::kPanels; ++p) {
+            const uint32_t off = s * L::kKv + p * kBN * kPanelRow;
+            tma_load_3d(base + L::kK + off, &tm_k, bar, 64 * p, c0, w.kvh);
+            tma_load_3d(base + L::kV + off, &tm_v, bar, 64 * p, c0, w.kvh);
+          }
         }
       }
     }
@@ -1686,31 +1943,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t q_s = base + L::kQ + wg * L::kQWg;
     const uint32_t do_s = base + L::kDo + wg * L::kQWg;
     const int lr = kRows * wg + 16 * warp + qr;       // this thread's rows
-    const int r0 = a.row_offset + i0 + kRows * wg;    // first global row
-    const bool rows_in = i0 + kRows * (wg + 1) <= a.t;
     const float qk_scale = a.scale * kLog2e;
-
-    float dq[HD / 2];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
-
-    mbar_wait(bar_q, 0);
-    // lse (in base 2) and D of rows lr and lr + 8
     const float* vecs = reinterpret_cast<const float*>(
         smem_raw + (base - smem_addr(smem_raw)) + L::kLse);
-    float lse2[2], dd[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      lse2[i] = vecs[lr + 8 * i] * kLog2e;
-      dd[i] = vecs[kConsumers * kRows + lr + 8 * i];
-    }
+    // this warp's staging panel for the epilogue
+    uint32_t* staged = reinterpret_cast<uint32_t*>(
+        smem_raw + (base - smem_addr(smem_raw)) +
+        (L::kOwnStaging ? L::kOut + (wg * 4 + warp) * L::kStageOut
+                        : L::kDo + wg * L::kQWg + warp * L::kStageOut));
 
-    // S = Q K^T and dP = dO V^T of tile `it`, issued and committed
-    auto issue_sdp = [&](float (&sc)[kBN / 2], float (&dp)[kBN / 2], int it) {
-      const int s = it % L::kStages;
+    auto ready = [&](int kv) {
+      mbar_wait(bar_full + 8 * (kv % kS), (kv / kS) & 1);
+    };
+    // S = Q K^T and dP = dO V^T of KV tile `kv` (over all items), issued
+    // and committed
+    auto issue_sdp = [&](float (&sc)[kBN / 2], float (&dp)[kBN / 2], int kv) {
+      const int s = kv % kS;
       const uint32_t k_s = base + L::kK + s * L::kKv;
       const uint32_t v_s = base + L::kV + s * L::kKv;
-      mbar_wait(bar_full + 8 * s, (it / L::kStages) & 1);
 #pragma unroll
       for (int k = 0; k < HD / 16; ++k) {
         const uint32_t off = (k / 4) * kRows * kPanelRow + (k % 4) * 32;
@@ -1727,90 +1977,137 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       wg_commit();
     };
-    // dQ += dS K of tile `it`, issued and committed
-    auto issue_dq = [&](const uint32_t (&dsa)[kBN / 16][4], int it) {
-      const uint32_t k_s = base + L::kK + (it % L::kStages) * L::kKv;
-#pragma unroll
-      for (int k = 0; k < kBN / 16; ++k)
-        wgmma_rs_mn(dq, dsa[k], k_s + k * 16 * kPanelRow, kBN * kPanelRow);
-      wg_commit();
+    auto release = [&](int kv) {
+      mbar_arrive_if(bar_empty + 8 * (kv % kS), lane == 0);
     };
-    // P (0 where the mask hides the pair, and on rows past t) and dS =
-    // P (dP - D) into dp, on the fragments: row lr + 8 i, column c0 + 8 j
-    // + qc + e % 2
-    auto form_ds = [&](const float (&sc)[kBN / 2], float (&dp)[kBN / 2],
-                       int it) {
-      const int c0 = (lo + it) * kBN;
-      const bool full =
-          rows_in && unmasked(a, r0, r0 + kRows - 1, c0, c0 + kBN - 1);
+
+    int kv = 0;                       // KV tiles consumed, over all items
+    int item = 0;                     // items consumed
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++item) {
+      const FwdTile w = fwd_tile<kTile, kBN>(a, i, n_qt);
+      const int n = w.n;
+      const int r0 = a.row_offset + w.i0 + kRows * wg;  // first global row
+      const bool rows_in = w.i0 + kRows * (wg + 1) <= a.t;
+
+      float dq[HD / 2];
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
+      for (int j = 0; j < HD / 2; ++j) dq[j] = 0.f;
+
+      // lse (in base 2) and D of rows lr and lr + 8, their global rows,
+      // and whether they lie before t
+      mbar_wait(bar_q_full, item & 1);
+      float lse2[2], dd[2];
+      int rg[2];
+      bool row_in[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e / 2;
-          float p = ex2(sc[4 * j + e] * qk_scale - lse2[i]);
-          if (!full && !(i0 + lr + 8 * i < a.t &&
-                         visible(a, a.row_offset + i0 + lr + 8 * i,
-                                 c0 + 8 * j + qc + e % 2)))
-            p = 0.f;
-          dp[4 * j + e] = p * (dp[4 * j + e] - dd[i]);
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = vecs[lr + 8 * r] * kLog2e;
+        dd[r] = vecs[kTile + lr + 8 * r];
+        rg[r] = a.row_offset + w.i0 + lr + 8 * r;
+        row_in[r] = w.i0 + lr + 8 * r < a.t;
+      }
+      mbar_arrive_if(bar_q_empty, lane == 0 && n == 0 && L::kOwnStaging);
+
+      // dQ += dS K of KV tile `kv`, issued and committed
+      auto issue_dq = [&](const uint32_t (&dsa)[kBN / 16][4], int kv) {
+        const uint32_t k_s = base + L::kK + (kv % kS) * L::kKv;
+#pragma unroll
+        for (int k = 0; k < kBN / 16; ++k)
+          wgmma_rs_mn(dq, dsa[k], k_s + k * 16 * kPanelRow, kBN * kPanelRow);
+        wg_commit();
+      };
+      // P and dS = P (dP - D) into dp, on the fragments of the item's KV
+      // tile `it`: row lr + 8 r, column c0 + 8 j + qc + e % 2. The mask
+      // is predicates under one uniform test of the tile: dS is selected
+      // to 0 where it hides the pair and on rows past t (p may be inf
+      // there, and a row past t may hold the last item's data)
+      auto form_ds = [&](const float (&sc)[kBN / 2], float (&dp)[kBN / 2],
+                         int it) {
+        const int c0 = (w.lo + it) * kBN;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(sc[4 * j + e] * qk_scale - lse2[e / 2]);
+            dp[4 * j + e] = p * (dp[4 * j + e] - dd[e / 2]);
+          }
+        if (!(rows_in && unmasked(a, r0, r0 + kRows - 1, c0, c0 + kBN - 1))) {
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!(row_in[e / 2] & seen(a, rg[e / 2], c0 + 8 * j + qc + e % 2)))
+                dp[4 * j + e] = 0.f;
         }
-    };
-    auto release = [&](int it) {
-      if (lane == 0) mbar_arrive(bar_empty + 8 * (it % L::kStages));
-    };
+      };
 
-    float sc[kBN / 2], dp[kBN / 2];
-    uint32_t dsa[kBN / 16][4];
-    // Software pipeline over the KV walk: the tensor cores get S(it) and
-    // dP(it), then dQ += dS(it - 1) K(it - 1); the warpgroup waits only
-    // for the first two, forms dS(it) beside the dQ product, and rounds
-    // it to the A operand once that product is done.
-    if (n > 0) {
-      wg_fence();
-      issue_sdp(sc, dp, 0);
-      wg_wait<0>();
-      fence_regs(sc);
-      fence_regs(dp);
-      form_ds(sc, dp, 0);
-      to_a_operand<kBN>(dp, dsa);
-    }
-    for (int it = 1; it < n; ++it) {
-      wg_fence();
-      issue_sdp(sc, dp, it);
-      issue_dq(dsa, it - 1);
-      wg_wait<1>();                  // S(it), dP(it) done; dQ may still run
-      fence_regs(sc);
-      fence_regs(dp);
-      form_ds(sc, dp, it);
-      wg_wait<0>();
-      fence_regs(dq);
-      fence_regs(dsa);               // dS(it - 1) stays put until here
-      release(it - 1);
-      to_a_operand<kBN>(dp, dsa);
-    }
-    if (n > 0) {
-      wg_fence();
-      issue_dq(dsa, n - 1);
-      wg_wait<0>();
-      fence_regs(dq);
-      fence_regs(dsa);
-      release(n - 1);
-    }
+      // Software pipeline over the KV walk: the tensor cores get S(it)
+      // and dP(it), then dQ += dS(it - 1) K(it - 1); the warpgroup waits
+      // only for the first two, forms dS(it) beside the dQ product, and
+      // rounds it to the A operand once that product is done. Every
+      // register operand is fenced above its wgmma.fence (so ptxas
+      // injects no warpgroup.arrive), the wait for a tile's data comes
+      // before it, each product is waited for in the iteration that
+      // issued it, and releases are predicated, not branched. Q and dO
+      // are released after the item's last S and dP.
+      float sc[kBN / 2], dp[kBN / 2];
+      uint32_t dsa[kBN / 16][4];
+      if (n > 0) {
+        ready(kv);
+        fence_regs(sc);
+        fence_regs(dp);
+        wg_fence();
+        issue_sdp(sc, dp, kv);
+        wg_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        mbar_arrive_if(bar_q_empty, lane == 0 && n == 1 && L::kOwnStaging);
+        form_ds(sc, dp, 0);
+        to_a_operand<kBN>(dp, dsa);
+      }
+      for (int it = 1; it < n; ++it) {
+        ready(kv + it);
+        fence_regs(sc);
+        fence_regs(dp);
+        fence_regs(dq);
+        fence_regs(dsa);
+        wg_fence();
+        issue_sdp(sc, dp, kv + it);
+        issue_dq(dsa, kv + it - 1);
+        wg_wait<1>();                 // S(it), dP(it) done; dQ may still run
+        fence_regs(sc);
+        fence_regs(dp);
+        mbar_arrive_if(bar_q_empty,
+                       lane == 0 && it == n - 1 && L::kOwnStaging);
+        form_ds(sc, dp, it);
+        fence_regs(dp);
+        wg_wait<0>();
+        fence_regs(dq);
+        fence_regs(dsa);              // dS(it - 1) stays put until here
+        release(kv + it - 1);
+        to_a_operand<kBN>(dp, dsa);
+      }
+      if (n > 0) {
+        fence_regs(dq);
+        fence_regs(dsa);
+        wg_fence();
+        issue_dq(dsa, kv + n - 1);
+        wg_wait<0>();
+        fence_regs(dq);
+        fence_regs(dsa);
+        release(kv + n - 1);
+      }
+      kv += n;
 
-    // dq = dS K / sqrt(d), straight from the fragment
-    const int d = a.d;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qi = i0 + lr + 8 * i;
-      if (qi >= a.t) continue;
-      const size_t row = ((size_t)bh * a.t + qi) * d;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int c = 8 * j + qc;
-        if (c < d)
-          store2(a.dq, row + c, dq[4 * j + 2 * i] * a.scale,
-                 dq[4 * j + 2 * i + 1] * a.scale, a.grad_f32);
+      // dq = dS K / sqrt(d) through the warp's staging panel
+      const int q0 = w.i0 + kRows * wg + 16 * warp;   // the warp's first row
+      const float scale[2] = {a.scale, a.scale};
+      store_rows(dq, scale, staged, a.dq, ((size_t)w.bh * a.t + q0) * a.d,
+                 a.t - q0, a.d, 0, a.grad_f32, lane);
+      if constexpr (!L::kOwnStaging) {
+        fence_proxy_async();          // the staging before the next dO
+        __syncwarp();
+        mbar_arrive_if(bar_q_empty, lane == 0);
       }
     }
   }
@@ -1975,9 +2272,12 @@ int launch_dq_sm90(const Args& a, cudaStream_t s) {
   if (int e = vec_map(&tlse, a.lse_in, rows, kTile)) return e;
   if (int e = vec_map(&tdd, a.dd, rows, kTile)) return e;
   if (int e = prepare(sm90::flash_bwd_dq_kernel_sm90<HD>, L::kSmem)) return e;
-  const dim3 grid(a.b * a.h, (a.t + kTile - 1) / kTile);
+  const int items = a.b * a.h * ((a.t + kTile - 1) / kTile);
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
   sm90::flash_bwd_dq_kernel_sm90<HD>
-      <<<grid, sm90::kThreads, L::kSmem, s>>>(tq, tdo, tk, tv, tlse, tdd, a);
+      <<<std::min(items, sms), sm90::kThreads, L::kSmem, s>>>(
+          tq, tdo, tk, tv, tlse, tdd, a);
   return (int)cudaGetLastError();
 }
 
