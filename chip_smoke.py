@@ -16,7 +16,8 @@ run when it fails:
    entry function: no B1 instantiation may spill or carry a wgmma note
    (a ``warpgroup.arrive`` injected between its products, C7519, an
    injected wait or serialised products), and the notes are printed for
-   every sm90 flash kernel;
+   every sm90 flash kernel; no B5 instantiation may spill, nor any
+   <256> one of B4;
 3. paged kernel: the paged-attention decode kernel (B4) against its
    plain PyTorch version at the full-width serving shapes and at the
    edges of its split (rows ending one token into a 64-token chunk, rows
@@ -39,11 +40,12 @@ run when it fails:
    bf16 and int8 row by row against an f32 reference, with a 64-slot
    sub-tile left out shown to break that allowance, in f32 at the first,
    a middle and the last slot, on a wrapped ring, and with one KV head
-   (MQA); every read also with its position on the device, launched
-   under sync-debug mode and bit-identical to the int position; NaN in
-   the slots (and scales) past pos leaving the output unchanged; one
-   CUDA graph of B5 replayed at five positions, each equal to the eager
-   call (timed likewise, then its split and merge kernels and SDPA under
+   (MQA), and at a batch wide enough for one split (no merge); every
+   read also with its position on the device, launched under sync-debug
+   mode and bit-identical to the int position; NaN in the slots (and
+   scales) past pos leaving the output unchanged; one CUDA graph of B5
+   replayed at five positions, each equal to the eager call (timed
+   likewise, then its kernel, one launch a call, and SDPA under
    ``torch.profiler``);
 6. engine parity: the ``ServingTraffic`` configuration in fp32 through
    the engine on the card and on the CPU, same weights and prompts;
@@ -381,6 +383,11 @@ DECODE_NAN_POS = (63, 2048, 2050)
 # the sub-tile (slots) whose omission from the middle of the live range
 # the bf16 and int8 allowances must see in every row
 DECODE_MUTANT_TILE = 64
+# a batch wide enough (b * h_kv = 288 rows over the H100's 132 SMs) that
+# B5 plans one split, whose CTA writes its rows with no merge, read at
+# this position
+DECODE_ONE_SPLIT = (72, 16, 4, 256, 128)
+DECODE_ONE_SPLIT_POS = 200
 # paged decode (B4) at the full-width serving read: a length-0 row, rows
 # ending on a block edge (512, 1024), a 1-token row
 PAGED_LENS = (0, 512, 1024, 1, 700, 129, 383, 960)
@@ -615,7 +622,7 @@ BEAM_SHORT_STEPS = 32
 # nats
 TOL_BEAM_BF16_REL = 2.0 ** -8
 BEAM_KERNEL_GROUPS = (
-    ("flash decode (B5)", ("flash_decode_split", "flash_decode_merge")),
+    ("flash decode (B5)", ("flash_decode",)),
     # index_select's row gathers (the reorder's 16 a step; the embedding
     # lookup's one is 32 rows of 4 KB)
     ("cache reorder (row gathers)", ("indexselect", "vectorized_gather")),
@@ -1753,12 +1760,13 @@ def _decode_graph_check(gen) -> None:
 
 def _decode_profile(gen, flush, pos, shape=DECODE_FULL,
                     iters: int = 20) -> dict:
-    """B5's split and merge kernels (bf16 and int8 caches) and SDPA over
-    the live slots at ``shape`` on one clock: mean device ms per launch
-    of each kernel in one ``torch.profiler`` session, each call after a
-    flush of the L2, after every event reading of the phase. A kernel
-    the profiler recorded no time for is reported as not measured.
-    Returns {"bf16 split", "int8 split", "merge": (kernel name, ms)}."""
+    """B5's kernel (bf16 and int8 caches) and SDPA over the live slots at
+    ``shape`` on one clock: mean device ms per call in one
+    ``torch.profiler`` session, each call after a flush of the L2, after
+    every event reading of the phase. Each B5 call must be one launch of
+    one kernel (a row's splits merge inside their cluster). A kernel the
+    profiler recorded no time for is reported as not measured. Returns
+    {"bf16", "int8": (kernel name, ms)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1779,33 +1787,27 @@ def _decode_profile(gen, flush, pos, shape=DECODE_FULL,
                 flush.zero_()
                 fn()
         torch.cuda.synchronize()
-    ms, sdpa = {}, {}
+    ms, sdpa, launches = {}, {}, {}
     for e in prof.key_averages():
         low = e.key.lower()
         if e.device_type != DeviceType.CUDA or not e.count \
                 or "zero" in low or "fill" in low:
             continue
         mean = e.self_device_time_total / 1e3 / e.count
-        if "flash_decode_split" in low:
-            ms["int8 split" if "signed char" in low else "bf16 split"] = (
-                e.key, mean)
-        elif "flash_decode_merge" in low:
-            ms["merge"] = (e.key, mean)
+        if "flash_decode" in low:
+            label = "int8" if "signed char" in low else "bf16"
+            ms[label] = (e.key, mean)
+            launches[label] = launches.get(label, 0) + e.count
         else:
             sdpa[e.key[:40]] = mean
-
-    def show(key):
-        return f"{ms[key][1]:.4f} ms" if key in ms else "not measured"
-
-    merge = show("merge")
     for label in ("bf16", "int8"):
-        split = ms.get(f"{label} split")
-        total = (f" = {split[1] + ms['merge'][1]:.4f} ms"
-                 if split is not None and "merge" in ms else "")
-        print(f"B5 {label} at pos {pos} by the profiler: split "
-              f"{show(f'{label} split')} + merge {merge}{total}")
-    for key, (name, _) in sorted(ms.items()):
-        print(f"  {key}: {name}")
+        per_call = launches.get(label, 0) / iters
+        print(f"B5 {label} at pos {pos} by the profiler: "
+              + (f"{ms[label][1]:.4f} ms, {per_call:g} kernel(s) a call "
+                 f"({ms[label][0]})" if label in ms else "not measured"))
+        if label in ms and per_call != 1:
+            raise AssertionError(f"B5 {label} launched {per_call} kernels "
+                                 f"a call, not one")
     print("SDPA over the live slots by the profiler: "
           + (f"{sum(sdpa.values()):.4f} ms ("
              + ", ".join(f"{k} {v:.4f}" for k, v in sdpa.items()) + ")"
@@ -1835,6 +1837,15 @@ def decode_kernel_phase(gen) -> dict:
         ring, torch.bfloat16, gen), ring_pos))
     errs.append(_decode_check("MQA bf16 (h_kv 1, rep 16)", *_decode_inputs(
         DECODE_MQA, torch.bfloat16, gen), DECODE_BF16_POS[0]))
+    one = DECODE_ONE_SPLIT
+    n_one = da.decode_n_split(one[3], one[0] * one[2],
+                              da._sm_count(torch.device(DEV)),
+                              da.ctas_per_sm(torch.bfloat16, one[4]))
+    if n_one != 1:
+        raise AssertionError(f"B5 plans {n_one} splits at {one}, not one")
+    errs.append(_decode_check("one split, no merge, bf16", *_decode_inputs(
+        one, torch.bfloat16, torch.Generator().manual_seed(17)),
+        DECODE_ONE_SPLIT_POS))
     del f32
     torch.cuda.empty_cache()
     _decode_nan_check(gen)
@@ -2292,7 +2303,7 @@ SERVING_KERNEL_GROUPS = (
 OTHER_KERNELS = "other (elementwise, reductions, copies)"
 # ... and of a decode step
 DECODE_KERNEL_GROUPS = (
-    ("flash decode (B5)", ("flash_decode_split", "flash_decode_merge")),
+    ("flash decode (B5)", ("flash_decode",)),
     ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
 )
 
@@ -3349,7 +3360,7 @@ def full_width_beam_phase(card: str) -> int:
     bound_ms = 2 * rows * h_kv * live * hd * 2 / HBM_BYTES_PER_S * 1e3
     per_launch = shares_l["flash decode (B5)"] / launches
     print(f"{card}: B5 at {rows} rows: {per_launch:.4f} ms per launch by the "
-          f"profiler (split and merge kernels), {launches} launches; byte "
+          f"profiler (one kernel a call), {launches} launches; byte "
           f"bound {bound_ms:.4f} ms at the run's mean {live:.0f} live "
           f"slots ({100 * bound_ms / per_launch:.1f}% of it)")
     return launches
@@ -4569,13 +4580,17 @@ FLASH_CASES_HD256 = {
 # queries take the tensor-core kernel <256> (f32 ones the FMA kernel)
 DECODE_HD256 = (8, 8, 1, 3200, 256)
 # the kernels the HD256 reads must run, by the profiler's names
-HD256_DECODE_KERNEL = "flash_decode_split_mma_kernel"
+HD256_DECODE_KERNEL = "flash_decode_mma_kernel"
 HD256_PAGED_KERNEL = "paged_decode_split_mma_kernel"
 # the <256> instantiations each source builds, none of which may spill:
-# B1-B3's, B5's tensor-core kernel over bf16 and int8 caches, B4's
-# tensor-core kernel
-HD256_INSTANTIATIONS = {"flash_attention": 3, "decode_attention": 2,
-                        "paged_attention": 1}
+# B1-B3's and B4's tensor-core kernel (B5's: every instantiation, below)
+HD256_INSTANTIATIONS = {"flash_attention": 3, "paged_attention": 1}
+# B5's instantiations in decode_attention.cu, none of which may spill:
+# the tensor-core kernel over bf16 and int8 caches at head dims 64, 128
+# and 256, and the FMA kernel's layouts for f32 queries (five over f32
+# caches, four over int8 ones)
+DECODE_KERNEL = re.compile(r"flash_decode_(mma|fma)_kernel")
+DECODE_INSTANTIATIONS = {"mma": 6, "fma": 9}
 # one past every kernel's largest head dim: each wrapper must refuse it
 REFUSED_HEAD_DIM = 272
 
@@ -4661,7 +4676,7 @@ def hd256_kernel_phase(gen) -> dict:
     ran = _decode_profile(gen, flush, pos, DECODE_HD256)
     paged_ran = _paged_profile(gen, flush, **shape)["B4"]
     del flush
-    for key in ("bf16 split", "int8 split"):
+    for key in ("bf16", "int8"):
         if HD256_DECODE_KERNEL not in ran.get(key, ("",))[0]:
             raise AssertionError(f"B5 at hd {hd} ({key}) ran "
                                  f"{ran.get(key)}, not {HD256_DECODE_KERNEL}")
@@ -5086,6 +5101,27 @@ def _check_hd256_spills(logs: dict) -> None:
             raise AssertionError(f"{source} at head dim 256: {hd256}")
 
 
+def _check_decode_build(log: str) -> None:
+    """Every B5 instantiation (DECODE_INSTANTIATIONS) in
+    decode_attention.cu's nvcc log built, with its spill bytes printed;
+    none may spill."""
+    found = {kind: {} for kind in DECODE_INSTANTIATIONS}
+    for fn, spill in _spills(log).items():
+        kernel = DECODE_KERNEL.search(fn)
+        if kernel:
+            found[kernel.group(1)][fn] = spill
+    for kind, spills in found.items():
+        print(f"decode_attention: flash_decode_{kind}_kernel "
+              f"instantiations {len(spills)}, spill bytes (stores, loads) "
+              f"{sorted(spills.values())}")
+    built = {kind: len(spills) for kind, spills in found.items()}
+    bad = [fn for spills in found.values() for fn, spill in spills.items()
+           if spill != (0, 0)]
+    if bad or built != DECODE_INSTANTIATIONS:
+        raise AssertionError(f"B5's instantiations ({built} built of "
+                             f"{DECODE_INSTANTIATIONS}) spill: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5109,6 +5145,7 @@ def main() -> int:
                 print("  " + line.strip())
     logs = {name: log for name, (_, _, log) in zip(KERNEL_SOURCES, built)}
     _check_hd256_spills(logs)
+    _check_decode_build(logs["decode_attention"])
     _check_flash_build(logs["flash_attention"])
 
     first = _run_half("1")
@@ -5163,8 +5200,8 @@ def main() -> int:
                             "tpu_dra_driver/workloads/ops/paged_attention.py:112",
                             fifth["paged_launches"], fifth["paged"]))
     rows.append(_kernel_row("flash_decode_attention (hd256, b8 h8/1 L3200 "
-                            "d256 pos 2048: flash_decode_split_mma_kernel"
-                            "<256> + flash_decode_merge_kernel)",
+                            "d256 pos 2048: flash_decode_mma_kernel<256>, "
+                            "one launch a call)",
                             "decode_attention.cu",
                             "tpu_dra_driver/workloads/ops/decode_attention.py:73",
                             fifth["decode_launches"], fifth["decode"]))

@@ -1,9 +1,10 @@
 """The build phase's reading of ptxas's report in ``chip_smoke.py``: the
 ``warpgroup.arrive``s that ptxas injected between wgmma's (C7519), its
 other notes on wgmma pipelines (serialised products, injected waits)
-and the spill bytes, counted per entry function, and the nine sm90
-flash instantiations (B1-B3 at head dims 64, 128 and 256) refused when
-any of them carries one, spills or is missing."""
+and the spill bytes, counted per entry function; the nine sm90 flash
+instantiations (B1-B3 at head dims 64, 128 and 256) refused when any of
+them carries one, spills or is missing, and B5's fifteen (its
+tensor-core and FMA kernels) when any spills or is missing."""
 
 import importlib.util
 from pathlib import Path
@@ -163,3 +164,49 @@ def test_the_build_check_refuses_a_serialised_or_spilling_b2_or_b3(
     # every instantiation built is printed with its notes and spills
     assert printed.count("spill bytes (stores, loads)") == \
         log.count("Compiling entry function")
+
+
+def _decode_mangled(kind: str, args: str) -> str:
+    kernel = f"flash_decode_{kind}_kernel"
+    return (f"_ZN52_GLOBAL__N__e034a0ba_19_decode_attention_cu_de523dbf"
+            f"{len(kernel)}{kernel}I{args}EEvNS_4ArgsE")
+
+
+# B5's fifteen instantiations: the tensor-core kernel over bf16 and int8
+# caches at head dims 64, 128 and 256, and the FMA kernel's layouts
+DECODE_ENTRIES = (
+    [("mma", f"{tc}Li{hd}E") for tc in ("13__nv_bfloat16", "a")
+     for hd in (64, 128, 256)]
+    + [("fma", f"ff{lps}Li{ppl}E") for lps, ppl in
+       (("Li32E", 2), ("Li32E", 1), ("Li16E", 1), ("Li8E", 1), ("Li4E", 1))]
+    + [("fma", f"fa{lps}Li1E") for lps in
+       ("Li16E", "Li8E", "Li4E", "Li2E")])
+
+
+def _decode_log(spill_at=None, left_out=None) -> str:
+    """B5's instantiations, the ``spill_at``-th spilling, the
+    ``left_out``-th missing."""
+    lines = []
+    for i, (kind, args) in enumerate(DECODE_ENTRIES):
+        if i != left_out:
+            lines += _entry(_decode_mangled(kind, args),
+                            (12, 24) if i == spill_at else (0, 0))
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("log, refused", [
+    (_decode_log(), False),
+    (_decode_log(spill_at=1), True),
+    (_decode_log(spill_at=10), True),
+    (_decode_log(left_out=14), True),
+], ids=["clean_fifteen", "mma_128_spill", "fma_spill", "fma_missing"])
+def test_the_build_check_refuses_a_spilling_b5_instantiation(log, refused,
+                                                              capsys):
+    if refused:
+        with pytest.raises(AssertionError):
+            cs._check_decode_build(log)
+    else:
+        cs._check_decode_build(log)
+    printed = capsys.readouterr().out
+    assert "flash_decode_mma_kernel instantiations 6" in printed
+    assert "flash_decode_fma_kernel instantiations" in printed

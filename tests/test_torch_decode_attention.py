@@ -230,20 +230,28 @@ def test_cpu_inputs_refuse_a_pos_on_another_device():
 
 # The kernel's grid: splits from L, b * h_kv and the SM count only, and
 # from the route's CTAs per SM: two, but one for bf16 queries past head
-# dim 128 (the tensor-core kernel with its 192 KiB ring). (L, bh, n_sm,
-# ctas, want)
+# dim 128 (the tensor-core kernel with its 192 KiB ring); at most 8, the
+# CTAs of one portable thread-block cluster, which merges them, and,
+# past clusters of two, about 1.5 CTAs per SM (a GPC packs a cluster's
+# CTAs onto as few SMs as fit). No position enters. (L, bh, n_sm, ctas,
+# want)
 N_SPLIT_CASES = [
-    (3200, 32, 132, 2, 8),    # the full-width read: 256 CTAs
+    (3200, 32, 132, 2, 6),    # the full-width read: 192 CTAs
     (3200, 512, 132, 2, 1),   # a wide batch: one split, no merge
     (128, 1, 132, 2, 2),      # at most one split per 64-slot tile
     (256, 8, 132, 2, 4),
-    (32768, 1, 132, 2, 264),
-    # the HD256 generation read (b 8, one KV head): 16 splits, 128 CTAs of
-    # one per SM, where two per SM gave 33 (one tile each at pos 2048)
-    (3200, 8, 132, td.ctas_per_sm(torch.bfloat16, 256), 16),
-    (3200, 8, 132, td.ctas_per_sm(torch.bfloat16, 160), 16),
-    (3200, 8, 132, td.ctas_per_sm(torch.float32, 256), 33),
-    (3200, 32, 132, td.ctas_per_sm(torch.bfloat16, 128), 8),
+    (32768, 1, 132, 2, 8),    # one cluster of 8, not 264 splits
+    # the HD256 generation read (b 8, one KV head): 8 splits, 64 CTAs of
+    # one per SM (16 before the cap: 64 CTAs read as fast as 128)
+    (3200, 8, 132, td.ctas_per_sm(torch.bfloat16, 256), 8),
+    (3200, 8, 132, td.ctas_per_sm(torch.bfloat16, 160), 8),
+    (3200, 8, 132, td.ctas_per_sm(torch.float32, 256), 8),
+    (3200, 32, 132, td.ctas_per_sm(torch.bfloat16, 128), 6),
+    # the speculative drafts' reads (b 1, 4 KV heads): one split a tile
+    (512, 4, 132, td.ctas_per_sm(torch.bfloat16, 128), 8),
+    (384, 4, 132, td.ctas_per_sm(torch.bfloat16, 128), 6),
+    # the beam's 32 rows: clusters of two, 256 CTAs
+    (2176, 128, 132, td.ctas_per_sm(torch.bfloat16, 128), 2),
 ]
 
 
@@ -253,6 +261,7 @@ N_SPLIT_CASES = [
          for i, c in enumerate(N_SPLIT_CASES)])
 def test_decode_n_split(L, bh, n_sm, ctas, want):
     assert td.decode_n_split(L, bh, n_sm, ctas) == want
+    assert 1 <= want <= td._MAX_SPLITS
     if ctas == 2:                   # the default: two CTAs per SM
         assert td.decode_n_split(L, bh, n_sm) == want
 
@@ -288,11 +297,14 @@ def test_partition_covers_each_live_slot_once(L, n_split):
 
 
 def _split_then_merge(q, k, v, pos, n_split, ks=None, vs=None):
-    """A plain model of the kernel's two passes in f32: each split's
-    partial (m, l, acc) over its slots of ``decode_partition`` with the
-    reference's numerics, an empty split (m, l, acc) = (NEG_INF, 0, 0),
-    then the merge kernel's arithmetic: m = max m_s, w_s = exp(m_s - m),
-    out = sum w_s acc_s / max(sum w_s l_s, 1e-30)."""
+    """A plain model of the kernel's one launch in f32. Each split (a CTA
+    of the row's cluster) publishes its partial (m, l, acc) over its
+    slots of ``decode_partition`` with the reference's numerics (taken
+    in f64, held in f32); an empty split publishes (NEG_INF, 0, 0). Then
+    CTA c takes the head dims [c hd // n, (c + 1) hd // n) and, for each,
+    folds every split's state in split order: m = max_s m_s, w_s =
+    exp(m_s - m), l = sum_s w_s l_s, acc = sum_s w_s acc_s, and acc over
+    max(l, 1e-30)."""
     b, h, _, hd = q.shape
     h_kv, L = k.shape[1], k.shape[2]
     rep = h // h_kv
@@ -300,11 +312,9 @@ def _split_then_merge(q, k, v, pos, n_split, ks=None, vs=None):
     parts = []
     for start, end in td.decode_partition(L, min(pos + 1, L), n_split):
         if start == end:
-            parts.append((torch.full((b, h_kv, rep, 1), td.NEG_INF,
-                                     dtype=torch.float64),
-                          torch.zeros((b, h_kv, rep, 1), dtype=torch.float64),
-                          torch.zeros((b, h_kv, rep, hd),
-                                      dtype=torch.float64)))
+            parts.append((torch.full((b, h_kv, rep, 1), td.NEG_INF),
+                          torch.zeros((b, h_kv, rep, 1)),
+                          torch.zeros((b, h_kv, rep, hd))))
             continue
         s = torch.einsum("bkrd,bktd->bkrt", qg, k[:, :, start:end].double())
         if ks is not None:
@@ -316,20 +326,45 @@ def _split_then_merge(q, k, v, pos, n_split, ks=None, vs=None):
         if vs is not None:
             p = p * vs[:, :, None, start:end].double()
         acc = torch.einsum("bkrt,bktd->bkrd", p, v[:, :, start:end].double())
-        parts.append((m, l, acc))
-    m = torch.stack([p[0] for p in parts]).amax(0)
-    w = [torch.exp(p[0] - m) for p in parts]
-    l = sum(wi * p[1] for wi, p in zip(w, parts))
-    acc = sum(wi * p[2] for wi, p in zip(w, parts))
-    return (acc / l.clamp_min(1e-30)).float().reshape(b, h, 1, hd)
+        parts.append((m.float(), l.float(), acc.float()))
+    m = parts[0][0]
+    for part in parts[1:]:
+        m = torch.maximum(m, part[0])
+    w = [torch.exp(part[0] - m) for part in parts]
+    l = torch.zeros_like(m)
+    for wi, part in zip(w, parts):
+        l = l + wi * part[1]
+    out = torch.full((b, h_kv, rep, hd), float("nan"))
+    for c in range(n_split):
+        d0, d1 = c * hd // n_split, (c + 1) * hd // n_split
+        acc = torch.zeros((b, h_kv, rep, d1 - d0))
+        for wi, part in zip(w, parts):
+            acc = acc + wi * part[2][..., d0:d1]
+        out[..., d0:d1] = acc / l.clamp_min(1e-30)
+    assert not out.isnan().any()          # the slices cover every dim
+    return out.reshape(b, h, 1, hd)
 
 
 # the HD256 generation read's split count (b 8, one KV head, 132 SMs,
 # bf16 queries at hd 256): its partition, at b 1 here
 HD256_SPLITS = td.decode_n_split(3200, 8, 132,
                                  td.ctas_per_sm(torch.bfloat16, 256))
+# ... and those of the other reads on the card's paths (132 SMs, bf16
+# queries at hd 128): generation (b 8, 4 KV heads), the beam's 32 rows,
+# the drafts (b 1) over caches of 512 and 384 slots
+READ_SPLITS = {
+    "hd128": td.decode_n_split(3200, 32, 132,
+                               td.ctas_per_sm(torch.bfloat16, 128)),
+    "beam": td.decode_n_split(2176, 128, 132,
+                              td.ctas_per_sm(torch.bfloat16, 128)),
+    "draft512": td.decode_n_split(512, 4, 132,
+                                  td.ctas_per_sm(torch.bfloat16, 128)),
+    "draft384": td.decode_n_split(384, 4, 132,
+                                  td.ctas_per_sm(torch.bfloat16, 128)),
+}
 GQA4_HD64 = (2, 8, 2, 64)           # (b, h, h_kv, hd)
 GQA8_HD256 = (1, 8, 1, 256)         # Gemma-class: 8 query heads, 1 KV head
+GQA4_HD128 = (1, 16, 4, 128)        # the generation cell's heads, b 1
 
 # (name, L, pos, n_split, int8, (b, h, h_kv, hd), bf16): the first slot,
 # a tile less one, one tile, a tile and a slot, the last slot, and a
@@ -352,6 +387,22 @@ MERGE_CASES = [
      True),
     ("hd256_gqa8_pos2048_int8", 3200, 2048, HD256_SPLITS, True, GQA8_HD256,
      False),
+    # the split counts of the reads on the card's paths, bf16 queries over
+    # bf16 and int8 caches
+    ("hd256_gqa8_pos2048_bf16_int8", 3200, 2048, HD256_SPLITS, True,
+     GQA8_HD256, True),
+    ("hd128_gqa4_pos2048_bf16", 3200, 2048, READ_SPLITS["hd128"], False,
+     GQA4_HD128, True),
+    ("hd128_gqa4_pos2048_bf16_int8", 3200, 2048, READ_SPLITS["hd128"], True,
+     GQA4_HD128, True),
+    ("beam_pos2048_bf16", 2176, 2048, READ_SPLITS["beam"], False,
+     GQA4_HD128, True),
+    ("draft512_pos393_bf16", 512, 393, READ_SPLITS["draft512"], False,
+     GQA4_HD128, True),
+    ("draft512_pos393_bf16_int8", 512, 393, READ_SPLITS["draft512"], True,
+     GQA4_HD128, True),
+    ("draft384_pos329_bf16", 384, 329, READ_SPLITS["draft384"], False,
+     GQA4_HD128, True),
 ]
 
 
@@ -371,7 +422,8 @@ def test_split_then_merge_matches_pallas_kernel(name, L, pos, n_split, int8,
     got = _split_then_merge(q, k, v, pos, n_split, ks, vs)
     jq, jk, jv, jks, jvs = _jax(*arrays)
     if bf16:
-        jq, jk, jv = (x.astype(jnp.bfloat16) for x in (jq, jk, jv))
+        jq, jk, jv = (x if x.dtype == jnp.int8 else x.astype(jnp.bfloat16)
+                      for x in (jq, jk, jv))
     kernel = np.asarray(jd.flash_decode_attention(
         jq, jk, jv, jnp.int32(pos), jks, jvs, interpret=True).astype(
             jnp.float32))

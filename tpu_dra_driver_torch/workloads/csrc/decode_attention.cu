@@ -10,8 +10,6 @@
 //   ks, vs  [b, h_kv, L]         f32 per-slot scales (int8 caches only)
 //   pos     a host int, or an int32 on the device that the kernel reads
 //   out     [b, h, 1, hd]        q's dtype
-//   part    [b * h_kv, n_split, rep, hd + 2]  f32 scratch: each split's
-//                                partial acc, m and l (n_split > 1)
 //
 // Semantics follow the TPU kernel: scores accumulate in f32 with K in
 // q's dtype (int8 codes widen exactly), the per-slot K scale multiplies
@@ -53,14 +51,13 @@
 //   warps and, past 4 warps' worth, over passes of the grid's z axis.
 // - bf16 queries (over bf16 or int8 caches, every head dim) take the
 //   tensor-core kernel: mma.sync m16n8k16 with the GQA group on the
-//   narrow side, S^T = K Q^T and O^T += V^T P^T (mma_decode.cuh). Up to
-//   hd 128 three CTAs share an SM, each with a ring of about 70 KiB.
-//   At 256 (Gemma-class heads: a GQA group of 8, the n8 side exactly) a
-//   64-slot K+V tile is 64 KiB and a thread holds 64 f32 of O^T, so one
-//   CTA holds an SM with a ring of three stages (192 KiB; int8 four),
-//   and `decode_n_split` plans one CTA per SM: each split's 2-3 tiles
-//   are in flight at once, where at two CTAs per SM a split held one tile
-//   and no copy overlapped any compute.
+//   narrow side, S^T = K Q^T and O^T += V^T P^T (mma_decode.cuh); q's
+//   fragments load as 16-byte pieces. Up to hd 128 a CTA has a ring of
+//   about 70 KiB (two CTAs fit an SM by registers, three by shared
+//   memory). At 256 (Gemma-class heads: a GQA group of 8, the n8 side
+//   exactly) a 64-slot K+V tile is 64 KiB and a thread holds 64 f32 of
+//   O^T, so one CTA holds an SM with a ring of three stages (192 KiB;
+//   int8 four), and `decode_n_split` plans one CTA per SM.
 // - f32 queries take the FMA kernel: each lane owns one
 //   16-byte piece of a cache row, LPS lanes a slot, so a warp reads
 //   whole rows without bank conflicts; scores reduce by shuffles inside
@@ -69,12 +66,23 @@
 // - Slots past the run's end are excluded by select, never multiplied
 //   by 0: a NaN in a stale ring slot or past pos cannot reach a sum.
 // - At the end the warps of a CTA merge their (m, l, acc) once through
-//   shared memory. A second kernel merges a row's splits: one warp per
-//   query row, the splits' states loaded in groups of 8 and folded in
-//   by the online rescaling, each weight exp(m_s - m) taken once per
-//   split (an empty split weighs exp(-1e30 - m) = 0). It reads no
-//   counters, so a graph can replay it. With one split the split kernel
-//   writes the output itself and no merge is launched.
+//   shared memory (each weight exp(m_x - m) once per row). The n_split
+//   CTAs of one (seq, KV head, pass) are one thread-block cluster (x =
+//   n_split, at most 8, the portable size), so one launch is the whole
+//   read: each CTA publishes its merged (acc, m, l) rows in its own
+//   shared memory, the cluster syncs (release / acquire), and each CTA
+//   merges an hd / n_split slice of the head dims over all splits
+//   through distributed shared memory, each thread's loads from every
+//   split issued before any is used, folded in split order (an empty
+//   split publishes m = -1e30, l = 0, acc = 0 and weighs exp(-1e30 - m)
+//   = 0); it writes that slice of `out`, and a second cluster sync keeps
+//   every CTA's shared memory alive until all have read it. No scratch,
+//   no counter, no second kernel, and the same bits on every run. With
+//   one split the CTA writes the output itself.
+// - A GPC places a cluster's CTAs on as few of its SMs as their
+//   resources allow, where a plain grid spreads them, and holds only as
+//   many clusters at once as its SMs fit whole. So `decode_n_split`
+//   keeps clusters of more than two CTAs to about 1.5 CTAs per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,8 +107,22 @@ constexpr size_t kFmaRingBytes = 100 * 1024;
 constexpr size_t kMmaRingBytes = 70 * 1024;
 constexpr size_t kMmaWideRingBytes = 192 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kMergeWarps = 4;
+// splits of a row: the CTAs of one cluster, at most the portable size
+constexpr int kMaxSplits = 8;
 constexpr int kMaxDevices = 64;   // per-device flags of the launch code
+
+// Pace probes of the tensor-core kernel, built only by
+// tools/decode_steps.py (-DB5_PACE=n), never by the port: 1 streams the
+// ring with no math (the copies' pace), 2 walks every tile over whatever
+// the ring holds, with no copy at all (the consumers' pace), 3 reads the
+// run's bytes with plain 16-byte loads by every thread of the same grid
+// (the card's floor for the read), 4 skips the cluster's merge, 5
+// copies nothing and walks no tile (the fixed cost of a CTA). Their
+// outputs are not the function's.
+#ifndef B5_PACE
+#define B5_PACE 0
+#endif
+constexpr int kPace = B5_PACE;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
@@ -178,7 +200,7 @@ __host__ __device__ __forceinline__ void split_tiles(int n_live, int split,
   *t1 = (int)((int64_t)(split + 1) * n_tiles / n_split);
 }
 
-// the arguments of a split kernel's launch
+// the arguments of a launch
 struct Args {
   const void* q;          // [b, h, 1, hd] TQ
   const void* k;          // [b, h_kv, L, hd] TC
@@ -187,15 +209,14 @@ struct Args {
   const float* vs;
   const int* pos_dev;     // the position on the device, or null
   void* out;              // [b, h, 1, hd] TQ
-  float* part;            // [b * h_kv, n_split, rep, hd + 2]
   int h_kv, rep, hd, L, pos_host, n_pass, stages;
   float sm_scale;
 };
 
-// What one CTA of a split kernel covers: (seq, KV head) `bh`, split
-// `split` of `n_split`, its live tiles [tile0, tile1) ending at slot
-// `slot_end`, and query rows [row0, row0 + rows) of the GQA group held
-// by RG row groups of RB rows, each walked by SG warps (RG * SG = 4).
+// What one CTA covers: (seq, KV head) `bh`, split `split` of `n_split`,
+// its live tiles [tile0, tile1) ending at slot `slot_end`, and query
+// rows [row0, row0 + rows) of the GQA group held by RG row groups of RB
+// rows, each walked by SG warps (RG * SG = 4).
 struct Work {
   int64_t bh;
   int split, n_split, tile0, tile1, slot_end, row0, rows, rg_n, sg_n;
@@ -220,10 +241,11 @@ __device__ __forceinline__ Work plan(const Args& a, int rb) {
   return w;
 }
 
-// An empty run: the neutral partial state (m = -1e30, l = 0, acc = 0);
-// with one split (a device pos below 0: no slot visible) the output 0.
+// An empty run: the neutral state (m = -1e30, l = 0, acc = 0) published
+// in `pub`; with one split (a device pos below 0: no slot visible) the
+// output 0.
 template <typename TQ>
-__device__ void write_empty(const Args& a, const Work& w) {
+__device__ void write_empty(const Args& a, const Work& w, float* pub) {
   const int stride = a.hd + 2;
   if (w.n_split == 1) {
     TQ* out = static_cast<TQ*>(a.out) + (w.bh * a.rep + w.row0) * a.hd;
@@ -231,10 +253,96 @@ __device__ void write_empty(const Args& a, const Work& w) {
       out[i] = from_f<TQ>(0.f);
     return;
   }
-  float* dst =
-      a.part + ((w.bh * w.n_split + w.split) * a.rep + w.row0) * stride;
   for (int i = threadIdx.x; i < w.rows * stride; i += kThreads)
-    dst[i] = i % stride == a.hd ? kNegInf : 0.f;
+    pub[i] = i % stride == a.hd ? kNegInf : 0.f;
+}
+
+// ------------------------------------------------- the cluster's merge
+// barrier.cluster with release / acquire: every thread of every CTA of
+// the cluster arrives, and each waits for all of them; what a CTA wrote
+// to its shared memory before arriving is visible to the cluster after
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// `addr` (this CTA's shared memory) in the shared memory of the CTA of
+// rank `rank` in the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// the published rows [rb * 4][hd + 2] (acc, m, l), then the warps'
+// merge weights [rb * 4][kConsumerWarps + 2] (w_x, then m and l)
+__host__ __device__ size_t pub_bytes(int rb, int hd) {
+  return (size_t)kConsumerWarps * rb * (hd + 2 + kConsumerWarps + 2) *
+         sizeof(float);
+}
+
+// The row block's merge over its cluster of n_split CTAs (split s is
+// the CTA of rank s: the cluster spans the grid's x axis), once every
+// CTA has published its rows in `pub` ([rows][hd + 2]: acc, m, l). All
+// threads of the CTA call it. This CTA takes the head dims [split hd /
+// n, (split + 1) hd / n); each thread, for a (row, dim) of them, loads
+// every split's m, l and acc through distributed shared memory, all
+// issued before any is used (one round trip through the cluster), and
+// folds them in split order: m = max_s m_s, w_s = exp(m_s - m), l =
+// sum_s w_s l_s, acc = sum_s w_s acc_s, out = acc / max(l, 1e-30). A
+// second cluster barrier keeps every CTA's shared memory alive until
+// all have read it.
+template <typename TQ>
+__device__ void merge_splits(const Args& a, const Work& w, float* pub) {
+  const int hd = a.hd;
+  const int stride = hd + 2;
+  const int n = w.n_split;
+  cluster_sync();
+  uint32_t src[kMaxSplits];           // `pub` in each split's CTA
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    src[s] = cluster_addr(smem_addr(pub), s < n ? s : 0);
+  const int d0 = w.split * hd / n;
+  const int nd = (w.split + 1) * hd / n - d0;
+  TQ* out = static_cast<TQ*>(a.out) + (w.bh * a.rep + w.row0) * hd;
+  for (int i = threadIdx.x; i < w.rows * nd; i += kThreads) {
+    const int r = i / nd;
+    const int d = d0 + i - r * nd;
+    const uint32_t at_m = (uint32_t)((r * stride + hd) * 4);
+    const uint32_t at_d = (uint32_t)((r * stride + d) * 4);
+    float ms[kMaxSplits], ls[kMaxSplits], xs[kMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      ms[s] = s < n ? ld_cluster(src[s] + at_m) : kNegInf;
+      ls[s] = s < n ? ld_cluster(src[s] + at_m + 4) : 0.f;
+      xs[s] = s < n ? ld_cluster(src[s] + at_d) : 0.f;
+    }
+    float m = kNegInf;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) m = fmaxf(m, ms[s]);
+    float l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      const float wt = s < n ? expf(ms[s] - m) : 0.f;
+      l = fmaf(ls[s], wt, l);
+      acc = fmaf(xs[s], wt, acc);
+    }
+    out[r * hd + d] = from_f<TQ>(__fdividef(acc, fmaxf(l, 1e-30f)));
+  }
+  cluster_sync();
 }
 
 // The producer thread: each tile of the run as one bulk copy of its K
@@ -251,7 +359,8 @@ __device__ void produce(const Args& a, const Work& w, unsigned char* ring,
       static_cast<const unsigned char*>(a.k) + w.bh * a.L * row_bytes;
   const unsigned char* vb =
       static_cast<const unsigned char*>(a.v) + w.bh * a.L * row_bytes;
-  for (int it = 0; it < w.tile1 - w.tile0; ++it) {
+  const int n_copies = kPace == 2 || kPace == 5 ? 0 : w.tile1 - w.tile0;
+  for (int it = 0; it < n_copies; ++it) {
     const int s = it % a.stages;
     if (it >= a.stages)
       mbar_wait(bar_empty + 8 * s, ((it / a.stages) - 1) & 1);
@@ -278,41 +387,91 @@ __device__ void produce(const Args& a, const Work& w, unsigned char* ring,
   }
 }
 
+// Pace probe 3: every thread reads 16-byte pieces of the run's K and V
+// rows (and scales) from device memory, 8 in flight, and folds them into
+// one word that is written only if it matches a value no read gives, so
+// that the loads are kept
+template <typename TC>
+__device__ void stream_read(const Args& a, const Work& w) {
+  const int row_bytes = a.hd * (int)sizeof(TC);
+  const int64_t first = (int64_t)w.tile0 * kTile;
+  const int64_t n_pieces = (w.slot_end - first) * row_bytes / 16;
+  const uint4* kp = reinterpret_cast<const uint4*>(
+      static_cast<const unsigned char*>(a.k) +
+      (w.bh * a.L + first) * row_bytes);
+  const uint4* vp = reinterpret_cast<const uint4*>(
+      static_cast<const unsigned char*>(a.v) +
+      (w.bh * a.L + first) * row_bytes);
+  constexpr int kInFlight = 8;
+  uint32_t x = 0;
+  for (int64_t i0 = threadIdx.x; i0 < n_pieces;
+       i0 += (int64_t)kThreads * kInFlight) {
+    uint4 u[2 * kInFlight];
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      const int64_t i = i0 + (int64_t)j * kThreads;
+      u[2 * j] = i < n_pieces ? __ldcs(kp + i) : make_uint4(0, 0, 0, 0);
+      u[2 * j + 1] = i < n_pieces ? __ldcs(vp + i) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * kInFlight; ++j)
+      x ^= u[j].x ^ u[j].y ^ u[j].z ^ u[j].w;
+  }
+  if (a.ks != nullptr) {
+    const int n = w.slot_end - (int)first;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      x ^= __float_as_uint(__ldcs(a.ks + w.bh * a.L + first + i)) ^
+           __float_as_uint(__ldcs(a.vs + w.bh * a.L + first + i));
+  }
+  if (x == 0x7fc00001u) static_cast<uint32_t*>(a.out)[0] = x;
+}
+
 // The warps of each row group merge their (m, l, acc), written to `mrg`
-// as [warp][rb][hd + 2], rescaled to their common max: into `out` with
-// one split, else into the split's partial state.
+// as [warp][rb][hd + 2]: per row its m, the weights exp(m_x - m) and l
+// once (after the CTA's rows in `pub`), then each (row, dim) of acc:
+// into `out` with one split, else into the rows the CTA publishes to
+// its cluster (`pub`, [rows][hd + 2]). The consumer warps only.
 template <typename TQ>
 __device__ void merge_warps(const Args& a, const Work& w, const float* mrg,
-                            int rb) {
+                            float* pub, int rb) {
   const int hd = a.hd;
   const int stride = hd + 2;
+  const int ws = kConsumerWarps + 2;
+  float* wts = pub + (size_t)kConsumerWarps * rb * stride;
+  for (int r = threadIdx.x; r < w.rows; r += kConsumers) {
+    const int g = r / rb;
+    const float* base = mrg + (g * w.sg_n * rb + r - g * rb) * stride;
+    float m = kNegInf;
+    for (int x = 0; x < w.sg_n; ++x)
+      m = fmaxf(m, base[x * rb * stride + hd]);
+    float l = 0.f;
+    for (int x = 0; x < w.sg_n; ++x) {
+      const float* ps = base + x * rb * stride;
+      const float wt = expf(ps[hd] - m);
+      wts[r * ws + x] = wt;
+      l += ps[hd + 1] * wt;
+    }
+    wts[r * ws + kConsumerWarps] = m;
+    wts[r * ws + kConsumerWarps + 1] = l;
+  }
+  consumers_sync();
   for (int i = threadIdx.x; i < w.rows * hd; i += kConsumers) {
     const int r = i / hd;
     const int d = i - r * hd;
     const int g = r / rb;
     const float* base = mrg + (g * w.sg_n * rb + r - g * rb) * stride;
-    float mm = kNegInf;
-    for (int x = 0; x < w.sg_n; ++x)
-      mm = fmaxf(mm, base[x * rb * stride + hd]);
-    float acc = 0.f, l = 0.f;
-    for (int x = 0; x < w.sg_n; ++x) {
-      const float* ps = base + x * rb * stride;
-      const float wt = expf(ps[hd] - mm);
-      acc += ps[d] * wt;
-      l += ps[hd + 1] * wt;
-    }
-    const int64_t row = w.bh * a.rep + w.row0 + r;
+    const float* wr = wts + r * ws;
+    float acc = 0.f;
+    for (int x = 0; x < w.sg_n; ++x) acc += base[x * rb * stride + d] * wr[x];
     if (w.n_split == 1) {
-      static_cast<TQ*>(a.out)[row * hd + d] =
-          from_f<TQ>(__fdividef(acc, fmaxf(l, 1e-30f)));
+      TQ* out = static_cast<TQ*>(a.out) + (w.bh * a.rep + w.row0) * hd;
+      out[r * hd + d] =
+          from_f<TQ>(__fdividef(acc, fmaxf(wr[kConsumerWarps + 1], 1e-30f)));
     } else {
-      float* dst =
-          a.part + ((w.bh * w.n_split + w.split) * a.rep + w.row0 + r) *
-                       stride;
-      dst[d] = acc;
+      pub[r * stride + d] = acc;
       if (d == 0) {
-        dst[hd] = mm;
-        dst[hd + 1] = l;
+        pub[r * stride + hd] = wr[kConsumerWarps];
+        pub[r * stride + hd + 1] = wr[kConsumerWarps + 1];
       }
     }
   }
@@ -320,7 +479,7 @@ __device__ void merge_warps(const Args& a, const Work& w, const float* mrg,
 
 // the ring's stage bytes: K and V tiles, and their scales
 template <typename TC>
-size_t stage_bytes(int hd, bool quantized) {
+__host__ __device__ size_t stage_bytes(int hd, bool quantized) {
   return 2 * (size_t)kTile * hd * sizeof(TC) +
          (quantized ? 2 * (size_t)kTile * sizeof(float) : 0);
 }
@@ -346,21 +505,18 @@ template <typename TC, int LPS, int PPL> struct Layout {
   static_assert(SPS * STEPS == kRound, "a round is 16 slots");
 };
 
-// The FMA split kernel, for f32 queries: grid
-// (n_split, h_kv, b * n_pass), CTA (split, head, seq * n_pass + pass).
+// The FMA walk, for f32 queries, of a CTA whose run is not empty: its
+// rows' merged state into `out` (one split) or `pub`. The producer warp
+// returns once it has issued its copies, the consumers after the merge
+// of their states.
 template <typename TQ, typename TC, int LPS, int PPL>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_decode_split_kernel(const __grid_constant__ Args a) {
+__device__ __forceinline__ void fma_walk(const Args& a, const Work& w,
+                                         float* pub) {
   using Lay = Layout<TC, LPS, PPL>;
   constexpr int N = Lay::N;
   constexpr int RB = Lay::RB;
   constexpr int SPS = Lay::SPS;
   constexpr int STEPS = Lay::STEPS;
-  const Work w = plan(a, RB);
-  if (w.tile0 >= w.tile1) {
-    write_empty<TQ>(a, w);
-    return;
-  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -371,11 +527,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tile_bytes = kTile * row_bytes;
   extern __shared__ __align__(128) unsigned char smem[];
   // [stages] x (K tile, V tile), then [stages] x (K, V scales), then the
-  // warps' merge state, then the barriers
+  // warps' merge state, then `pub`, then the barriers
   unsigned char* ring = smem;
   float* scales = reinterpret_cast<float*>(smem + 2 * a.stages * tile_bytes);
   float* mrg = scales + (quantized ? 2 * a.stages * kTile : 0);
-  const uint32_t bar_full = smem_addr(mrg + kConsumerWarps * RB * stride);
+  const uint32_t bar_full = smem_addr(pub) + (uint32_t)pub_bytes(RB, hd);
   const uint32_t bar_empty = bar_full + 8 * kMaxStages;
   const int n_t = w.tile1 - w.tile0;
 
@@ -559,27 +715,65 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   consumers_sync();
-  merge_warps<TQ>(a, w, mrg, RB);
+  merge_warps<TQ>(a, w, mrg, pub, RB);
+}
+
+// The FMA kernel, for f32 queries: grid (n_split, h_kv, b * n_pass) in
+// clusters of (n_split, 1, 1), CTA (split, head, seq * n_pass + pass).
+template <typename TQ, typename TC, int LPS, int PPL>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_decode_fma_kernel(const __grid_constant__ Args a) {
+  constexpr int RB = Layout<TC, LPS, PPL>::RB;
+  const Work w = plan(a, RB);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t ring_bytes =
+      stage_bytes<TC>(a.hd, a.ks != nullptr) * a.stages;
+  float* pub = reinterpret_cast<float*>(smem + ring_bytes +
+                                        merge_bytes(RB, a.hd));
+  if (w.tile0 >= w.tile1)
+    write_empty<TQ>(a, w, pub);
+  else
+    fma_walk<TQ, TC, LPS, PPL>(a, w, pub);
+  if (w.n_split > 1) merge_splits<TQ>(a, w, pub);
+}
+
+// q fragments as mma_decode's `load_q` gives them (query row `row` as
+// dims 32 c + 8 t + [0, 8) in 4 bf16 pairs, 0 where the row is absent
+// or past hd), each chunk one 16-byte load where the row is aligned
+template <int HD>
+__device__ __forceinline__ void load_q16(uint32_t (&qf)[HD / 32][4],
+                                         const uint16_t* row, bool have,
+                                         int hd, int t) {
+  if ((reinterpret_cast<uintptr_t>(row) & 15) != 0) {
+    load_q<HD>(qf, row, have, hd, t);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < HD / 32; ++c) {
+    const int d0 = 32 * c + 8 * t;
+    const uint4 u = have && d0 < hd
+                        ? *reinterpret_cast<const uint4*>(row + d0)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    qf[c][0] = u.x;
+    qf[c][1] = u.y;
+    qf[c][2] = u.z;
+    qf[c][3] = u.w;
+  }
 }
 
 // ---------------------------------------------------------------------
-// The tensor-core split kernel, for bf16 queries (over bf16 or int8
-// caches): each consumer warp walks 16-slot rounds of the ring's tiles
-// with mma_decode's `Walk` (S^T = K Q^T, O^T += V^T P^T on mma.sync
-// m16n8k16, the GQA group on the n8 side; see mma_decode.cuh). HD is 64,
-// 128 or 256, the head dims it takes (below HD read as 0). At 256 the
-// O^T accumulators are 64 f32 and q's fragments 32 registers a thread, so
-// its instantiations take one CTA per SM (launch bounds) and, with it,
-// a ring of up to 192 KiB: three 64 KiB stages of bf16 K/V tiles, so that
-// a split's 2-3 tiles are all in flight at once.
+// The tensor-core walk, for bf16 queries (over bf16 or int8 caches), of
+// a CTA whose run is not empty: each consumer warp walks 16-slot rounds
+// of the ring's tiles with mma_decode's `Walk` (S^T = K Q^T, O^T += V^T
+// P^T on mma.sync m16n8k16, the GQA group on the n8 side; see
+// mma_decode.cuh). HD is 64, 128 or 256, the head dims it takes (below
+// HD read as 0). At 256 the O^T accumulators are 64 f32 and q's
+// fragments 32 registers a thread, so its instantiations take one CTA
+// per SM (launch bounds) and, with it, a ring of up to 192 KiB: three
+// 64 KiB stages of bf16 K/V tiles in flight at once.
 template <typename TC, int HD>
-__global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 3)
-    flash_decode_split_mma_kernel(const __grid_constant__ Args a) {
-  const Work w = plan(a, kMmaRows);
-  if (w.tile0 >= w.tile1) {
-    write_empty<__nv_bfloat16>(a, w);
-    return;
-  }
+__device__ __forceinline__ void mma_walk(const Args& a, const Work& w,
+                                         float* pub) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -592,16 +786,15 @@ __global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 3)
   const int tile_bytes = kTile * row_bytes;
   extern __shared__ __align__(128) unsigned char smem[];
   // [stages] x (K tile, V tile), [stages] x (K, V scales), the barriers;
-  // the warps' merge state reuses the ring once the walk is done
+  // the warps' merge state and `pub` reuse the ring once the walk is done
   unsigned char* ring = smem;
   float* scales = reinterpret_cast<float*>(smem + 2 * a.stages * tile_bytes);
-  const size_t ring_bytes =
-      2 * (size_t)a.stages * tile_bytes +
-      (quantized ? 2 * (size_t)a.stages * kTile * sizeof(float) : 0);
-  const size_t mrg_bytes = merge_bytes(kMmaRows, hd);
+  const size_t ring_bytes = stage_bytes<TC>(hd, quantized) * a.stages;
+  const size_t tail_bytes =
+      merge_bytes(kMmaRows, hd) + pub_bytes(kMmaRows, hd);
   const uint32_t bar_full =
-      smem_addr(smem) + (uint32_t)(ring_bytes > mrg_bytes ? ring_bytes
-                                                          : mrg_bytes);
+      smem_addr(smem) + (uint32_t)(ring_bytes > tail_bytes ? ring_bytes
+                                                           : tail_bytes);
   const uint32_t bar_empty = bar_full + 8 * kMaxStages;
   const int n_t = w.tile1 - w.tile0;
 
@@ -625,17 +818,18 @@ __global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 3)
   const int wrows = max(0, min(kMmaRows, w.rows - rg * kMmaRows));
 
   uint32_t qf[HD / 32][4];
-  load_q<HD>(qf,
-             static_cast<const uint16_t*>(a.q) +
-                 (w.bh * a.rep + w.row0 + rg * kMmaRows + g) * hd,
-             g < wrows, hd, t);
+  load_q16<HD>(qf,
+               static_cast<const uint16_t*>(a.q) +
+                   (w.bh * a.rep + w.row0 + rg * kMmaRows + g) * hd,
+               g < wrows, hd, t);
   Walk<HD> walk;
   walk.init();
 
   for (int it = 0; it < n_t; ++it) {
     const int s = it % a.stages;
-    mbar_wait(bar_full + 8 * s, (it / a.stages) & 1);
-    if (wrows > 0) {
+    if (kPace != 2 && kPace != 5)
+      mbar_wait(bar_full + 8 * s, (it / a.stages) & 1);
+    if (kPace != 1 && kPace != 5 && wrows > 0) {
       const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
       const unsigned char* vt = kt + tile_bytes;
       const float* kscale = quantized ? scales + s * 2 * kTile : nullptr;
@@ -660,86 +854,48 @@ __global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 3)
   float* mrg = reinterpret_cast<float*>(smem);
   walk.store(mrg + warp * kMmaRows * stride, wrows, hd, stride, g, t);
   consumers_sync();
-  merge_warps<__nv_bfloat16>(a, w, mrg, kMmaRows);
+  merge_warps<__nv_bfloat16>(a, w, mrg, pub, kMmaRows);
 }
 
-// grid ceil(b * h / 4), 4 warps: warp w merges query row (block * 4 + w)
-// over its n_split partial states, lane d of the warp head dims d + 32 i
-// (i < DIMS). The states come in groups of 8 splits whose loads are all
-// issued before any is used, folded in by the online rescaling; each
-// split's weight exp(m_s - m) is taken once per group, not per dim. An
-// empty split weighs exp(-1e30 - m) = 0.
-template <typename TQ, int DIMS>
-__global__ void __launch_bounds__(32 * kMergeWarps) flash_decode_merge_kernel(
-    const float* __restrict__ part, TQ* __restrict__ out, int n_rows, int rep,
-    int hd, int n_split) {
-  constexpr int kGroup = 8;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int stride = hd + 2;
-  const int64_t bh = row / rep;
-  const int r = (int)(row - bh * rep);
-  const float* base = part + (bh * n_split * rep + r) * stride;
-  const int64_t split_stride = (int64_t)rep * stride;
-  float acc[DIMS];
-#pragma unroll
-  for (int i = 0; i < DIMS; ++i) acc[i] = 0.f;
-  float m = kNegInf, l = 0.f;
-  for (int s0 = 0; s0 < n_split; s0 += kGroup) {
-    float ms[kGroup], ls[kGroup], av[kGroup][DIMS];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const bool have = s0 + j < n_split;
-      const float* ps = base + (s0 + j) * split_stride;
-      ms[j] = have ? ps[hd] : kNegInf;
-      ls[j] = have ? ps[hd + 1] : 0.f;
-#pragma unroll
-      for (int i = 0; i < DIMS; ++i) {
-        const int d = lane + 32 * i;
-        av[j][i] = have && d < hd ? ps[d] : 0.f;
-      }
-    }
-    float m_new = m;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) m_new = fmaxf(m_new, ms[j]);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DIMS; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const float wt = expf(ms[j] - m_new);
-      l = fmaf(ls[j], wt, l);
-#pragma unroll
-      for (int i = 0; i < DIMS; ++i) acc[i] = fmaf(av[j][i], wt, acc[i]);
-    }
-    m = m_new;
+// The tensor-core kernel: grid (n_split, h_kv, b * n_pass) in clusters
+// of (n_split, 1, 1), CTA (split, head, seq * n_pass + pass).
+template <typename TC, int HD>
+__global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 2)
+    flash_decode_mma_kernel(const __grid_constant__ Args a) {
+  const Work w = plan(a, kMmaRows);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* pub =
+      reinterpret_cast<float*>(smem + merge_bytes(kMmaRows, a.hd));
+  if (w.tile0 >= w.tile1) {
+    write_empty<__nv_bfloat16>(a, w, pub);
+  } else if constexpr (kPace == 3) {
+    stream_read<TC>(a, w);
+    __syncthreads();
+    write_empty<__nv_bfloat16>(a, w, pub);
+  } else {
+    mma_walk<TC, HD>(a, w, pub);
   }
-  l = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < DIMS; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) out[row * hd + d] = from_f<TQ>(__fdividef(acc[i], l));
-  }
+  if (kPace != 4 && w.n_split > 1) merge_splits<__nv_bfloat16>(a, w, pub);
 }
 
-// Launches a split kernel with its ring of 1-4 stages in about `budget`
-// bytes and the warps' merge state, which aliases the ring where `alias`
-// is set. `raised` holds the kernel's own flags, one per device: its
+// Launches a kernel with its ring of 1-4 stages in about `budget` bytes,
+// the warps' merge state and the published rows, which alias the ring
+// where `alias` is set, as one cluster of (n_split, 1, 1) CTAs per row
+// block. `raised` holds the kernel's own flags, one per device: its
 // shared-memory limit is raised once on each, so that a launch under
-// graph capture makes no attribute call.
+// graph capture makes no attribute call. A cluster launch the card
+// refuses returns its error.
 template <typename TC>
 int launch_split(void (*kernel)(Args), bool* raised, Args a, int b,
                  int n_split, int rb, bool alias, size_t budget,
                  cudaStream_t stream) {
   const bool quantized = a.ks != nullptr;
   const size_t per_stage = stage_bytes<TC>(a.hd, quantized);
-  const size_t mrg = merge_bytes(rb, a.hd);
+  const size_t tail = merge_bytes(rb, a.hd) + pub_bytes(rb, a.hd);
   const size_t bars = 2 * kMaxStages * 8;
   auto total = [&](int stages) {
     const size_t ring = stages * per_stage;
-    return (alias ? (ring > mrg ? ring : mrg) : ring + mrg) + bars;
+    return (alias ? (ring > tail ? ring : tail) : ring + tail) + bars;
   };
   int stages = (int)(budget / per_stage);
   stages = stages < 1 ? 1 : (stages > kMaxStages ? kMaxStages : stages);
@@ -749,6 +905,9 @@ int launch_split(void (*kernel)(Args), bool* raised, Args a, int b,
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const int rows_per_pass = kConsumerWarps * rb;
+  a.n_pass = (a.rep + rows_per_pass - 1) / rows_per_pass;
+  a.stages = stages;
   if (smem > 48 * 1024 && !(dev < kMaxDevices && raised[dev])) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -756,17 +915,27 @@ int launch_split(void (*kernel)(Args), bool* raised, Args a, int b,
     if (e != cudaSuccess) return (int)e;
     if (dev < kMaxDevices) raised[dev] = true;
   }
-  const int rows_per_pass = kConsumerWarps * rb;
-  a.n_pass = (a.rep + rows_per_pass - 1) / rows_per_pass;
-  a.stages = stages;
-  kernel<<<dim3(n_split, a.h_kv, b * a.n_pass), kThreads, smem, stream>>>(a);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_split, a.h_kv, b * a.n_pass);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  e = cudaLaunchKernelEx(&config, kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TC, int LPS, int PPL>
 int launch_fma(const Args& a, int b, int n_split, cudaStream_t stream) {
   static bool raised[kMaxDevices] = {};
-  return launch_split<TC>(flash_decode_split_kernel<TQ, TC, LPS, PPL>,
+  return launch_split<TC>(flash_decode_fma_kernel<TQ, TC, LPS, PPL>,
                           raised, a, b, n_split, Layout<TC, LPS, PPL>::RB,
                           false, kFmaRingBytes, stream);
 }
@@ -774,8 +943,8 @@ int launch_fma(const Args& a, int b, int n_split, cudaStream_t stream) {
 template <typename TC, int HD>
 int launch_mma(const Args& a, int b, int n_split, cudaStream_t stream) {
   static bool raised[kMaxDevices] = {};
-  return launch_split<TC>(flash_decode_split_mma_kernel<TC, HD>, raised, a,
-                          b, n_split, kMmaRows, true,
+  return launch_split<TC>(flash_decode_mma_kernel<TC, HD>, raised, a, b,
+                          n_split, kMmaRows, true,
                           HD > 128 ? kMmaWideRingBytes : kMmaRingBytes,
                           stream);
 }
@@ -813,20 +982,9 @@ int launch(const Args& a, int b, int n_split, cudaStream_t stream) {
         reinterpret_cast<uintptr_t>(a.ks) |
         reinterpret_cast<uintptr_t>(a.vs)) % 16) == 0;
   if (!aligned || a.hd % 16 != 0 || a.hd > 256 || a.L % 128 != 0 ||
-      n_split < 1 || n_split > a.L / kTile ||
-      (n_split > 1 && a.part == nullptr))
+      n_split < 1 || n_split > kMaxSplits || n_split > a.L / kTile)
     return (int)cudaErrorInvalidValue;
-  const int rc = launch_layout<TQ, TC>(a, b, n_split, stream);
-  if (rc != 0 || n_split == 1) return rc;
-  const int n_rows = b * a.h_kv * a.rep;
-  const int blocks = (n_rows + kMergeWarps - 1) / kMergeWarps;
-  if (a.hd <= 128)
-    flash_decode_merge_kernel<TQ, 4><<<blocks, 32 * kMergeWarps, 0, stream>>>(
-        a.part, static_cast<TQ*>(a.out), n_rows, a.rep, a.hd, n_split);
-  else
-    flash_decode_merge_kernel<TQ, 8><<<blocks, 32 * kMergeWarps, 0, stream>>>(
-        a.part, static_cast<TQ*>(a.out), n_rows, a.rep, a.hd, n_split);
-  return (int)cudaGetLastError();
+  return launch_layout<TQ, TC>(a, b, n_split, stream);
 }
 
 }  // namespace
@@ -835,14 +993,13 @@ int launch(const Args& a, int b, int n_split, cudaStream_t stream) {
 // codes and ks/vs are its f32 scales (else the cache is in q's dtype and
 // ks/vs are ignored). The position is `*pos_dev` (an int32 on the
 // device, read by the kernel) when pos_dev is not null, else pos_host.
-// n_split (1 to L / 64) comes from L, b * h_kv and the SM count only;
-// `part` is f32 scratch [b * h_kv, n_split, rep, hd + 2], needed when
-// n_split > 1. Returns a cudaError_t (0 = success).
+// n_split (1 to min(8, L / 64)) comes from L, b * h_kv and the SM count
+// only. One launch; returns a cudaError_t (0 = success).
 extern "C" int flash_decode_attention_launch(
     int q_dtype, int quantized, const void* q, const void* k, const void* v,
     const void* ks, const void* vs, const void* pos_dev, int pos_host,
-    void* out, void* part, int b, int h_kv, int rep, int hd, int L,
-    int n_split, void* stream) {
+    void* out, int b, int h_kv, int rep, int hd, int L, int n_split,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args a;
   a.q = q;
@@ -852,7 +1009,6 @@ extern "C" int flash_decode_attention_launch(
   a.vs = quantized ? static_cast<const float*>(vs) : nullptr;
   a.pos_dev = static_cast<const int*>(pos_dev);
   a.out = out;
-  a.part = static_cast<float*>(part);
   a.h_kv = h_kv;
   a.rep = rep;
   a.hd = hd;

@@ -16,12 +16,13 @@ the kernel, and anything else raises. Each launch adds one to
 
 ``pos`` is a Python int, or an int32 tensor of shape ``[]`` or ``[1]``
 (the reference's ``atleast_1d(pos)``). On the card the kernel reads a
-device ``pos`` itself: its grid and scratch depend on L, ``b * h_kv``
-and the SM count only (:func:`decode_n_split`), and each CTA takes its
-own run of slots from ``pos`` (:func:`decode_partition`), so a launch
-can be captured in a CUDA graph and replayed at any position. A device
-``pos`` is never read on the host, so it is not checked: a value below
-0 sees no slot and gives 0.
+device ``pos`` itself: its grid depends on L, ``b * h_kv`` and the SM
+count only (:func:`decode_n_split`), and each CTA takes its own run of
+slots from ``pos`` (:func:`decode_partition`), so a launch can be
+captured in a CUDA graph and replayed at any position. A device ``pos``
+is never read on the host, so it is not checked: a value below 0 sees
+no slot and gives 0. A call is one launch: the splits of a row are one
+thread-block cluster and merge through distributed shared memory.
 """
 
 from __future__ import annotations
@@ -43,7 +44,10 @@ KV_BLOCK = 128
 
 # slots of K and V in one tile of the kernel's ring
 _TILE = 64
-# resident CTAs of the split kernel an SM holds; one of the tensor-core
+# splits of a row: the CTAs of one thread-block cluster, at most the
+# portable cluster size (kMaxSplits in csrc/decode_attention.cu)
+_MAX_SPLITS = 8
+# resident CTAs of the kernel an SM holds; one of the tensor-core
 # kernel past head dim 128, whose ring takes most of an SM's shared
 # memory (kMmaWideRingBytes in csrc/decode_attention.cu)
 _CTAS_PER_SM = 2
@@ -73,17 +77,23 @@ def decode_n_split(L: int, bh: int, n_sm: int,
                    ctas_per_sm: int = _CTAS_PER_SM) -> int:
     """The kernel's number of splits of each (sequence, KV head)'s live
     range: enough that ``bh`` (= b * h_kv) times it fills ``n_sm`` SMs
-    with about ``ctas_per_sm`` CTAs each (:func:`ctas_per_sm`), and at
-    most one split per 64-slot tile of the cache. It depends on no
-    position."""
-    return max(1, min(L // _TILE, ctas_per_sm * n_sm // max(bh, 1)))
+    with about ``ctas_per_sm`` CTAs each (:func:`ctas_per_sm`), at most
+    one split per 64-slot tile of the cache, and at most 8, the CTAs of
+    one portable thread-block cluster, which merges the splits. A GPC
+    packs a cluster's CTAs onto as few SMs as fit, so clusters of more
+    than two CTAs are kept to about 1.5 CTAs per SM (at the generation
+    read, b * h_kv = 32 on 132 SMs, 6 splits read as fast as a separate
+    merge kernel did, 4 and 8 slower). It depends on no position."""
+    bh = max(bh, 1)
+    n = max(1, min(_MAX_SPLITS, L // _TILE, ctas_per_sm * n_sm // bh))
+    return n if n <= 2 else max(2, min(n, 3 * n_sm // (2 * bh)))
 
 
 def ctas_per_sm(q_dtype: torch.dtype, hd: int) -> int:
-    """Resident CTAs per SM of the split kernel that q's dtype and the
-    head dim take: one for bf16 queries past head dim 128 (the
-    tensor-core kernel with its 192 KiB ring, so that each split holds
-    a few tiles in flight), else two."""
+    """Resident CTAs per SM of the kernel that q's dtype and the head dim
+    take: one for bf16 queries past head dim 128 (the tensor-core kernel
+    with its 192 KiB ring, so that each split holds a few tiles in
+    flight), else two."""
     if q_dtype == torch.bfloat16 and hd > 128:
         return _CTAS_PER_SM_WIDE
     return _CTAS_PER_SM
@@ -192,8 +202,9 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     launch the kernel of ``csrc/decode_attention.cu`` (built at first
     use) and must be contiguous and on one device, q bf16 or f32, the
     cache of q's dtype or int8, scales f32, head dim a multiple of 16 up
-    to 256; anything else raises. Device reads are O(min(pos + 1, L)).
-    The launch's grid and scratch do not depend on ``pos``."""
+    to 256; anything else raises (a cluster launch the card refuses
+    included). Device reads are O(min(pos + 1, L)). The launch's grid
+    does not depend on ``pos``."""
     pos = _check(q, k_cache, v_cache, pos, k_scale, v_scale, block_t)
     on_device = isinstance(pos, torch.Tensor)
     tensors = [q, k_cache, v_cache]
@@ -236,18 +247,15 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     # tpu_dra_driver/workloads/ops/decode_attention.py. Its bound on the
     # H100 is bytes: the live K and V (and scales), read once, over
     # 3.35 TB/s. The live slots are split over enough CTAs to fill the
-    # card, and a second kernel merges the partial softmax states; see
-    # csrc/decode_attention.cu.
+    # card, and the splits of a row, one thread-block cluster, merge
+    # their partial softmax states through distributed shared memory in
+    # the same launch; see csrc/decode_attention.cu.
     out = torch.empty_like(q)
     if b == 0:
         return out
     rep = h // h_kv
     n_split = decode_n_split(L, b * h_kv, _sm_count(q.device),
                              ctas_per_sm(q.dtype, hd))
-    part = None
-    if n_split > 1:
-        part = torch.empty((b * h_kv, n_split, rep, hd + 2),
-                           dtype=torch.float32, device=q.device)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -258,8 +266,7 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             v_scale.data_ptr() if quantized else None,
             pos.data_ptr() if on_device else None,
             0 if on_device else min(pos, L),   # the same n_live, in int32
-            out.data_ptr(), None if part is None else part.data_ptr(),
-            b, h_kv, rep, hd, L, n_split, stream)
+            out.data_ptr(), b, h_kv, rep, hd, L, n_split, stream)
     if rc != 0:
         raise RuntimeError(
             "flash_decode_attention kernel launch failed: "
@@ -290,7 +297,7 @@ def _kernel_library() -> ctypes.CDLL:
     fn = lib.flash_decode_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         err = lib.decode_attention_error_string
         err.argtypes = [i]
