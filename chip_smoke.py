@@ -452,15 +452,22 @@ FLASH_BF16_CASES = {
 
 # B1's persistent schedule (one CTA per SM walking the work items, a
 # 128-row q tile of one head each): fewer items than SMs, many more with
-# ragged t and tkv, and whole items whose rows see no column (t > tkv
-# under a window and row_offset); name -> (shape, mask, the 64 x 64 tiles
-# (first q row, first KV column) whose omission the allowance must see)
+# ragged t and tkv, whole items whose rows see no column (t > tkv under a
+# window and row_offset), the long ring's windowed hop (one wave of 128
+# items, walks of 16 down to 1 tiles) and the decoder's causal t = 512
+# (short walks, each item's fixed cost); name -> (shape, mask, the 64 x
+# 64 tiles (first q row, first KV column) whose omission the allowance
+# must see)
 FLASH_SCHEDULE_CASES = {
     "one_item_t64": ((1, 1, 1, 64, 64, 128), {}, ((0, 0),)),
     "ragged_many_items": ((2, 32, 8, 1000, 1100, 128), dict(row_offset=100),
                           ((896, 960), (512, 256))),
     "empty_items": ((2, 16, 4, 640, 512, 128),
                     dict(window=32, row_offset=64), ((384, 416),)),
+    "long_window_hop": ((1, 8, 8, 2048, 2048, 128),
+                        dict(window=2048, row_offset=2048),
+                        ((0, 1024), (960, 1984))),
+    "causal_t512": ((8, 16, 4, 512, 512, 128), {}, ((448, 384), (256, 0))),
 }
 
 # B2's persistent schedule (as B1's) and B3's walk over the GQA group,
@@ -5088,6 +5095,88 @@ def _check_flash_build(log: str) -> None:
                              f"{bad}")
 
 
+def _sass(lib) -> str:
+    """The SASS listing of a built library (``cuobjdump -sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+def _sass_functions(sass: str):
+    """(mangled name, listing) of each function in a SASS listing."""
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        yield part.split("\n", 1)[0].strip(), part
+
+
+def sass_order(listing: str) -> str:
+    """A listing as the order of its products (H: a run of HGMMA),
+    waits (W0, W1: WARPGROUP.DEPBAR.LE to 0 or 1 pending), named
+    barriers (S: BAR.SYNC, A: BAR.ARV) and exponentials (E: a run of at
+    least 8 MUFU.EX2), to show which waits precede the softmax."""
+    runs = []                         # [mark, count]
+    for line in listing.splitlines():
+        if "HGMMA" in line:
+            mark = "H"
+        elif "WARPGROUP.DEPBAR.LE" in line:
+            mark = "W" + re.search(r"DEPBAR\.LE gsb0, 0x(\d)", line).group(1)
+        elif "BAR.SYNC" in line:
+            mark = "S"
+        elif "BAR.ARV" in line:
+            mark = "A"
+        elif "MUFU.EX2" in line:
+            mark = "E"
+        else:
+            continue
+        if runs and runs[-1][0] == mark and mark in "HE":
+            runs[-1][1] += 1
+        else:
+            runs.append([mark, 1])
+    return " ".join(m for m, n in runs if m != "E" or n >= 8)
+
+
+def _softmax_under_pv(order: str) -> bool:
+    """Whether a B1 loop order (sass_order) runs its softmax under its
+    own P V: it has a wait to one pending product (S done, P V in
+    flight), and after each such wait the exponentials come before the
+    wait to none."""
+    marks = order.split()
+    waits = [i for i, m in enumerate(marks) if m == "W1"]
+    for i in waits:
+        after = [m for m in marks[i + 1:] if m in ("W0", "E")]
+        if not after or after[0] != "E":
+            return False
+    return bool(waits)
+
+
+def _check_b1_order(sass: str) -> dict:
+    """Each of B1's three instantiations (``flash_fwd_kernel_sm90<64,
+    128, 256>``) in flash_attention.cu's SASS, its loop order printed
+    with whether its softmax runs under its own P V
+    (``_softmax_under_pv``: B1's loop does not; every order tried that
+    puts its exponentials above the wait read slower on the card,
+    PERF.md); each must have been built and pipeline its walk, a wait to
+    one product in flight (W1: S(j) done, P V(j - 1) still running).
+    Returns {head dim: softmax under its own P V}."""
+    orders = {}
+    for name, listing in _sass_functions(sass):
+        kernel = SM90_FLASH_KERNEL.search(name)
+        if kernel and kernel.group(1) == "flash_fwd_kernel_sm90":
+            orders[int(kernel.group(2))] = sass_order(listing)
+    under, bad = {}, []
+    for hd in (64, 128, 256):
+        order = orders.get(hd)
+        under[hd] = order is not None and _softmax_under_pv(order)
+        print(f"flash_fwd_kernel_sm90<{hd}> in order: {order}; the "
+              f"softmax under its own P V: {under[hd]}")
+        if order is None or "W1" not in order.split():
+            bad.append(hd)
+    if bad:
+        raise AssertionError(f"B1 at head dims {bad} was not built or does "
+                             f"not pipeline its walk")
+    return under
+
+
 def _check_hd256_spills(logs: dict) -> None:
     """Each source's <256> instantiations (HD256_INSTANTIATIONS, by
     source name; ``logs``: nvcc's output by source name) built, none of
@@ -5147,6 +5236,8 @@ def main() -> int:
     _check_hd256_spills(logs)
     _check_decode_build(logs["decode_attention"])
     _check_flash_build(logs["flash_attention"])
+    libs = {name: path for name, (path, _, _) in zip(KERNEL_SOURCES, built)}
+    _check_b1_order(_sass(libs["flash_attention"]))
 
     first = _run_half("1")
     second = _run_half("2")

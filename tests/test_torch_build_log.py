@@ -4,7 +4,10 @@ other notes on wgmma pipelines (serialised products, injected waits)
 and the spill bytes, counted per entry function; the nine sm90 flash
 instantiations (B1-B3 at head dims 64, 128 and 256) refused when any of
 them carries one, spills or is missing, and B5's fifteen (its
-tensor-core and FMA kernels) when any spills or is missing."""
+tensor-core and FMA kernels) when any spills or is missing; and B1's
+loop read from its SASS (``sass_order``): whether its softmax's
+exponentials come before the wait for its own P V, and a refusal when
+an instantiation is missing or its walk is not pipelined."""
 
 import importlib.util
 from pathlib import Path
@@ -210,3 +213,96 @@ def test_the_build_check_refuses_a_spilling_b5_instantiation(log, refused,
     printed = capsys.readouterr().out
     assert "flash_decode_mma_kernel instantiations 6" in printed
     assert "flash_decode_fma_kernel instantiations" in printed
+
+
+# one SASS line per mark of ``chip_smoke.sass_order``; E is a run of 8
+# exponentials, shorter runs (the rescale's) are not marked
+SASS_LINES = {
+    "H": ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;"],
+    "W0": ["WARPGROUP.DEPBAR.LE gsb0, 0x0 ;"],
+    "W1": ["WARPGROUP.DEPBAR.LE gsb0, 0x1 ;"],
+    "S": ["BAR.SYNC.DEFER_BLOCKING R2, 0x100 ;"],
+    "A": ["BAR.ARV R3, 0x100 ;"],
+    "E": ["MUFU.EX2 R40, R41 ;"] * 8,
+    "e": ["MUFU.EX2 R40, R41 ;"] * 2,
+    "F": ["FMNMX R5, R6, R7, !PT ;", "FFMA R8, R9, R10, R11 ;"],
+}
+
+
+def _listing(kernel: str, hd: int, marks: str) -> str:
+    """A function of a ``cuobjdump -sass`` listing whose instructions
+    read, by sass_order, as ``marks``."""
+    lines = [f"\n\t\tFunction : {_mangled(kernel, hd)}",
+             "\t.headerflags\t@\"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\""]
+    pc = 0
+    for mark in marks.split():
+        for text in SASS_LINES[mark]:
+            lines.append(f"        /*{pc:04x}*/                   {text}"
+                         f"  /* 0x000fe20000000f00 */")
+            pc += 16
+    return "\n".join(lines)
+
+
+# B1's loops: the parent's (the wait for P V above the exponentials) and
+# one whose softmax runs under its own P V; both peel the first tile,
+# whose softmax follows a wait to none with nothing else in flight
+PARENT_LOOP = "S H A W0 e F E F S H H A W1 W0 e F E F H W0"
+UNDER_PV_LOOP = "S H A W0 e F E F S S H H A W1 e F E F W0 S H W0"
+
+
+def _sass_of(b1: dict) -> str:
+    """A listing of B1 at the head dims in ``b1`` (hd -> marks) beside
+    B2 and B3 at every head dim."""
+    parts = [_listing("flash_fwd_kernel_sm90", hd, marks)
+             for hd, marks in b1.items()]
+    parts += [_listing(kernel, hd, "S H H W0 F H W0")
+              for kernel in KERNELS[1:] for hd in (64, 128, 256)]
+    return "Fatbin elf code:\n" + "\n".join(parts)
+
+
+def test_the_sass_order_reads_products_waits_barriers_and_exponentials():
+    listing = _listing("flash_fwd_kernel_sm90", 128, UNDER_PV_LOOP)
+    assert cs.sass_order(listing) == \
+        "S H A W0 E S S H A W1 E W0 S H W0"
+    [(name, part)] = list(cs._sass_functions("x\n" + listing))
+    assert name == _mangled("flash_fwd_kernel_sm90", 128)
+
+
+@pytest.mark.parametrize("order, under", [
+    (cs.sass_order(_listing("flash_fwd_kernel_sm90", 128, PARENT_LOOP)),
+     False),
+    (cs.sass_order(_listing("flash_fwd_kernel_sm90", 128, UNDER_PV_LOOP)),
+     True),
+    ("S H A W1 E W0 E S H A W1 W0 E H W0", False),
+    ("S H A W1 E W0 E S H A W1 E W0 E H W0", True),
+    ("S H A W0 E H W0", False),
+], ids=["parent", "softmax_under_pv", "one_loop_waits_first",
+        "every_loop_under_pv", "no_pipelined_wait"])
+def test_the_softmax_under_pv_needs_exponentials_before_each_wait(order,
+                                                                  under):
+    assert cs._softmax_under_pv(order) is under
+
+
+@pytest.mark.parametrize("b1, refused, under", [
+    ({64: PARENT_LOOP, 128: PARENT_LOOP, 256: PARENT_LOOP}, False, False),
+    ({64: UNDER_PV_LOOP, 128: UNDER_PV_LOOP, 256: UNDER_PV_LOOP}, False,
+     True),
+    ({64: PARENT_LOOP, 128: PARENT_LOOP}, True, None),
+    ({64: PARENT_LOOP, 128: "S H A W0 e F E F H W0", 256: PARENT_LOOP},
+     True, None),
+], ids=["parent", "softmax_under_pv", "b1_256_missing",
+        "no_pipelined_wait"])
+def test_the_order_check_prints_b1s_loop_and_refuses_an_unpipelined_one(
+        b1, refused, under, capsys):
+    sass = _sass_of(b1)
+    if refused:
+        with pytest.raises(AssertionError):
+            cs._check_b1_order(sass)
+    else:
+        assert cs._check_b1_order(sass) == {64: under, 128: under,
+                                            256: under}
+    printed = capsys.readouterr().out
+    for hd in (64, 128, 256):
+        assert f"flash_fwd_kernel_sm90<{hd}> in order: " in printed
+    assert cs.sass_order(_listing("flash_fwd_kernel_sm90", 128,
+                                  b1[128])) in printed

@@ -95,10 +95,8 @@ def bounds(q, k, mask) -> dict:
 def sdpa_backward_ms(q, k, v, dout, mask, flush) -> float:
     """SDPA's one backward (dq, dk and dv together) under the same mask:
     a yardstick, never called by the port."""
-    t, tkv = q.shape[2], k.shape[2]
     if "window" in mask:
-        kw = {"attn_mask": fa._visible(t, tkv, True, mask["window"], 0,
-                                       None, cs.DEV)}
+        kw = {"attn_mask": fs._visible(q, k, mask)}
     else:
         kw = {"is_causal": mask.get("causal", True) and "prefix" not in mask}
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))

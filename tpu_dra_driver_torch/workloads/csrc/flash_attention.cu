@@ -105,11 +105,25 @@
 // item's Q loads as soon as the last S has read Q, under the last P V and
 // the epilogue. Stages: at HD 64 and 128, Q (16 or 32 KiB) and two
 // stages of 128-row K and V tiles (32 or 64 KiB a stage) beside the 16
-// KiB epilogue staging; a third stage would not fit at 128. At HD 256,
-// 64-row K/V tiles (O is 128 f32 a thread, S 32) and two stages: Q alone
-// is 64 KiB. ptxas still places the wait for P V above the softmax's
-// exponentials in the same block, so a warpgroup's own softmax does not
-// overlap its P V; the other warpgroup's products fill that gap.
+// KiB epilogue staging; a third stage would not fit at 128, and the
+// copies alone take under half of B1's time (the copy probe below). At
+// HD 256, 64-row K/V tiles (O is 128 f32 a thread, S 32) and two stages:
+// Q alone is 64 KiB. The wait for P V sits above the softmax's
+// exponentials (SASS `W1 W0 E`): ptxas waits for every product in flight
+// at the join after the mask's test of the tile, so a warpgroup's own
+// softmax does not overlap its own P V, only the other warpgroup's
+// products. Measured on the card (PERF.md), each way of moving the
+// wait below the exponentials read slower: the walk split into
+// masked and unmasked loops with the mask a constant (`W1 E W0`, 10-15%
+// slower; the products alone slower too), the mask as predicates on
+// every tile (33%), P through shared memory with P V as wgmma_ss (5-15%,
+// and still `W1 W0 E`); so were the epilogue by TMA (0-6%), O's rescale
+// after the P V wait (0-3%), and a softmax with the scale in the
+// exponent's FMA and tree reductions (no faster). Pace probes built only
+// by tools/flash_fwd_steps.py (B1_PACE, below) split B1's time: at the
+// training shape the products alone take 0.21-0.23 ms of 0.28, the
+// softmax alone 0.16-0.18, the copies 0.13-0.14 and an item's fixed cost
+// (Q, the epilogue, the lse) ~3.2 us.
 //
 // B2. Persistent over the same order as B1, K and V in 64-row tiles
 // (32 at HD 256) through three stages, so that dQ (HD / 2 f32 a thread),
@@ -1087,6 +1101,19 @@ __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// Pace probes of B1, built only by tools/flash_fwd_steps.py
+// (-DB1_PACE=n), never by the port: 1 (copy) keeps the producer, every
+// wait and release, the turns and the epilogue, and issues no product
+// and no softmax; 2 (products) issues S and P V with the softmax cut to
+// P's cast; 3 (softmax) runs the softmax on the fragment, issues no
+// product and loads no K or V; 4 (no ping-pong) drops the named
+// barriers; 5 (fixed) cuts every item's walk to zero tiles, leaving Q,
+// the epilogue and the lse. Their outputs are not the function's.
+#ifndef B1_PACE
+#define B1_PACE 0
+#endif
+constexpr int kB1Pace = B1_PACE;
+
 template <int HD> struct Fwd {
   // KV rows per ring stage: at HD 256 the 64-row tiles keep S (32 f32 a
   // thread) and P beside O (128) in the registers
@@ -1167,6 +1194,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_v_empty = bar_v_full + 8 * kS;
   const int n_qt = (a.t + kTile - 1) / kTile;
   const int n_items = n_qt * a.b * a.h;
+  // what the pace probes keep (all of it in the port's build)
+  constexpr bool kProducts = kB1Pace != 1 && kB1Pace != 3;
+  constexpr bool kSoftmax = kB1Pace != 1 && kB1Pace != 2;
+  constexpr bool kRing = kB1Pace != 3 && kB1Pace != 5;
+  constexpr bool kTurns = kB1Pace != 4;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q_full, 1);
@@ -1201,7 +1233,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int p = 0; p < L::kPanels; ++p)
             tma_load_3d(base + L::kQ + h * L::kQWg + p * kRows * kPanelRow,
                         &tm_q, bar_q_full, 64 * p, w.i0 + kRows * h, w.bh);
-        for (int it = 0; it < w.n; ++it, ++kv) {
+        for (int it = 0; it < (kRing ? w.n : 0); ++it, ++kv) {
           const int s = kv % kS;
           // the phase in which the consumers freed stage s
           const uint32_t freed = ((kv / kS) - 1) & 1;
@@ -1237,6 +1269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // every write to sc (the softmax's) above it, so ptxas has no reason
     // to add a warpgroup.arrive of its own between the products.
     auto issue_s = [&](float (&sc)[kBN / 2], int kv) {
+      if constexpr (!kProducts) return;
       const uint32_t k_s = base + L::kK + (kv % kS) * L::kKv;
       fence_regs(sc);
       wg_fence();
@@ -1254,6 +1287,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // rescale and P's rounding are pinned above the wgmma.fence likewise
     auto issue_pv = [&](float (&o)[HD / 2], uint32_t (&pa)[kBN / 16][4],
                         int kv) {
+      if constexpr (!kProducts) return;
       const uint32_t v_s = base + L::kV + (kv % kS) * L::kKv;
       fence_regs(o);
       fence_regs(pa);
@@ -1266,19 +1300,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(pa);
     };
     auto k_ready = [&](int kv) {
-      mbar_wait(bar_k_full + 8 * (kv % kS), (kv / kS) & 1);
+      if (kRing) mbar_wait(bar_k_full + 8 * (kv % kS), (kv / kS) & 1);
     };
     auto v_ready = [&](int kv) {
-      mbar_wait(bar_v_full + 8 * (kv % kS), (kv / kS) & 1);
+      if (kRing) mbar_wait(bar_v_full + 8 * (kv % kS), (kv / kS) & 1);
     };
+    auto take_turn = [&] { if (kTurns) named_sync(kPingPong + wg); };
+    auto hand_over = [&] { if (kTurns) named_arrive(kPingPong + 1 - wg); };
 
     // warpgroup 0 takes the tensor cores first
-    if (wg == 1) named_arrive(kPingPong);
+    if (wg == 1 && kTurns) named_arrive(kPingPong);
     int kv = 0;                       // KV tiles consumed, over all items
     int item = 0;                     // items consumed
     for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++item) {
       const FwdTile w = fwd_tile<kTile, kBN>(a, i, n_qt);
-      const int n = w.n;
+      const int n = kB1Pace == 5 ? 0 : w.n;
       const int r0 = a.row_offset + w.i0 + kRows * wg;  // first global row
       const int rw = r0 + 16 * warp + qr;               // this thread's row
 
@@ -1292,6 +1328,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // O. Masked scores take a fill below the m sentinel so they give
       // exp2(...) == 0.
       auto softmax = [&](float (&sc)[kBN / 2], int it, float (&alpha)[2]) {
+        alpha[0] = alpha[1] = 1.f;
+        if constexpr (!kSoftmax) return;
         const int c0 = (w.lo + it) * kBN;
 #pragma unroll
         for (int j = 0; j < kBN / 2; ++j) sc[j] *= qk_scale;
@@ -1328,6 +1366,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
       };
       auto rescale = [&](const float (&alpha)[2]) {
+        if constexpr (!kSoftmax) return;
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
@@ -1347,31 +1386,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       float sc[kBN / 2];
       uint32_t pa[kBN / 16][4];
       float alpha[2];
+      if constexpr (!kProducts) {     // the probes' scores: no product
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) sc[j] = 0.f;
+      }
       mbar_wait(bar_q_full, item & 1);
       mbar_arrive_if(bar_q_empty, lane == 0 && n == 0);
       if (n > 0) {
         k_ready(kv);
-        named_sync(kPingPong + wg);
+        take_turn();
         issue_s(sc, kv);
-        named_arrive(kPingPong + 1 - wg);
+        hand_over();
         wg_wait<0>();
         fence_regs(sc);
-        mbar_arrive_if(bar_k_empty + 8 * (kv % kS), lane == 0);
+        mbar_arrive_if(bar_k_empty + 8 * (kv % kS), kRing && lane == 0);
         mbar_arrive_if(bar_q_empty, lane == 0 && n == 1);
         softmax(sc, 0, alpha);
-        to_a_operand<kBN>(sc, pa);
+        if (kB1Pace != 1) to_a_operand<kBN>(sc, pa);
       }
       for (int it = 1; it < n; ++it) {
         k_ready(kv + it);
         v_ready(kv + it - 1);
-        named_sync(kPingPong + wg);
+        take_turn();
         issue_s(sc, kv + it);
         rescale(alpha);
         issue_pv(o, pa, kv + it - 1);
-        named_arrive(kPingPong + 1 - wg);
+        hand_over();
         wg_wait<1>();                 // S(it) is done, P V may still run
         fence_regs(sc);
-        mbar_arrive_if(bar_k_empty + 8 * ((kv + it) % kS), lane == 0);
+        mbar_arrive_if(bar_k_empty + 8 * ((kv + it) % kS),
+                       kRing && lane == 0);
         mbar_arrive_if(bar_q_empty, lane == 0 && it == n - 1);
         softmax(sc, it, alpha);
         fence_regs(sc);
@@ -1379,8 +1423,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(o);
         fence_regs(pa);               // P(it - 1) stays put until here
         fence_regs(sc);
-        mbar_arrive_if(bar_v_empty + 8 * ((kv + it - 1) % kS), lane == 0);
-        to_a_operand<kBN>(sc, pa);
+        mbar_arrive_if(bar_v_empty + 8 * ((kv + it - 1) % kS),
+                       kRing && lane == 0);
+        if (kB1Pace != 1) to_a_operand<kBN>(sc, pa);
       }
       if (n > 0) {
         v_ready(kv + n - 1);
@@ -1389,7 +1434,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         wg_wait<0>();
         fence_regs(o);
         fence_regs(pa);
-        mbar_arrive_if(bar_v_empty + 8 * ((kv + n - 1) % kS), lane == 0);
+        mbar_arrive_if(bar_v_empty + 8 * ((kv + n - 1) % kS),
+                       kRing && lane == 0);
       }
       kv += n;
 
