@@ -25,6 +25,16 @@ those heads, the row-parallel products and the embedding are summed
 over ``tp`` and the logits joined before the argmax, so every rank
 runs the same requests and picks the same tokens as one device.
 
+Spans (``utils/profiling.py`` ``annotate``, recorded while a profile
+runs): ``serve.admit`` around ``add``, with children
+``serve.admit.prefill`` (the copies to the device and the batch-1
+``block_prefill``), ``serve.admit.pool_write`` (the 2 x n_layers block
+writes) and ``serve.admit.first_token`` (the host's read of the first
+token, which waits for the card). Counters, over every engine of the
+process and always on, as ``StepGraph.captures``: ``chunks``,
+``decode_steps`` (the sum of the chunks' k) and ``row_steps`` (the sum
+of k x active rows).
+
 The pools are updated in place (the reference donates them to each jit
 call instead), so a call that fails part-way leaves them in an unknown
 state: any exception raised by the device work of ``add``, ``step`` or
@@ -61,6 +71,7 @@ from tpu_dra_driver_torch.workloads.ops.paged_attention import (
     pool_append,
 )
 from tpu_dra_driver_torch.workloads.utils.graphs import StepGraph
+from tpu_dra_driver_torch.workloads.utils.profiling import annotate
 from tpu_dra_driver_torch.workloads.utils.timing import (
     device_seconds_total,
     time_fn,
@@ -151,8 +162,9 @@ def _admit_prefill(params, tokens, pool_ks, pool_vs, blocks,
     Returns (last_logits [1, vocab], pool_ks, pool_vs).
 
     ``tokens`` [1, t_bucket] and ``blocks`` [nb_bucket] are padded to
-    buckets by the engine; ``true_len`` puts the logits on the real last
-    token (causality shields it from the right-padding). The padded
+    buckets by the engine, and are copied to the pools' device first
+    where they are not there; ``true_len`` puts the logits on the real
+    last token (causality shields it from the right-padding). The padded
     tail's K/V land past the written blocks, in slots that lens hides
     and the next appends overwrite, or in the null block (padded table
     entries are 0), which nothing reads.
@@ -161,22 +173,26 @@ def _admit_prefill(params, tokens, pool_ks, pool_vs, blocks,
     t0 = tokens.shape[1]
     nb = blocks.shape[0]
     params = local_params(params, cfg, mesh)
-    cache = init_kv_cache(
-        cfg, 1, t0, device=tokens.device,
-        mesh=None if params.spmd is None else params.spmd.mesh)
-    last_logits, cache, _ = block_prefill(
-        params, cfg, cache, tokens,
-        last_index=None if true_len is None else int(true_len) - 1)
-    blocks = blocks.long()
-    for li in range(cfg.n_layers):
-        for pool, kv in ((pool_ks[li], cache["k"][li][0]),
-                         (pool_vs[li], cache["v"][li][0])):
-            h_kv, length, hd = kv.shape        # [h_kv, Lpad, hd]
-            pad = nb * block_t - length
-            if pad > 0:
-                kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
-            tiles = kv[:, :nb * block_t].reshape(h_kv, nb, block_t, hd)
-            pool[blocks] = tiles.transpose(0, 1).to(pool.dtype)
+    with annotate("serve.admit.prefill"):
+        device = pool_ks[0].device
+        tokens, blocks = tokens.to(device), blocks.to(device)
+        cache = init_kv_cache(
+            cfg, 1, t0, device=device,
+            mesh=None if params.spmd is None else params.spmd.mesh)
+        last_logits, cache, _ = block_prefill(
+            params, cfg, cache, tokens,
+            last_index=None if true_len is None else int(true_len) - 1)
+    with annotate("serve.admit.pool_write"):
+        blocks = blocks.long()
+        for li in range(cfg.n_layers):
+            for pool, kv in ((pool_ks[li], cache["k"][li][0]),
+                             (pool_vs[li], cache["v"][li][0])):
+                h_kv, length, hd = kv.shape        # [h_kv, Lpad, hd]
+                pad = nb * block_t - length
+                if pad > 0:
+                    kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
+                tiles = kv[:, :nb * block_t].reshape(h_kv, nb, block_t, hd)
+                pool[blocks] = tiles.transpose(0, 1).to(pool.dtype)
     return last_logits, pool_ks, pool_vs
 
 
@@ -196,6 +212,11 @@ class ServingEngine:
 
     # chunk sizes of the multi-step path, as in the reference
     CHUNK_SIZES = (32, 16, 8, 4, 2)
+
+    # counters of every engine in the process (the module's docstring)
+    chunks = 0
+    decode_steps = 0
+    row_steps = 0
 
     def __init__(self, params: Params, cfg: ModelConfig, n_blocks: int,
                  block_t: int = 128, max_batch: int = 8,
@@ -294,35 +315,38 @@ class ServingEngine:
         if not self.cfg.use_rope:
             t_bucket = min(t_bucket, self.cfg.max_seq)
         nb_bucket = max(1, 1 << (n_prompt - 1).bit_length())
-        toks = np.asarray(list(prompt) + [0] * (t_bucket - t0),
-                          np.int32)[None]
-        blocks = [self.free.pop() for _ in range(need)]
-        try:
-            padded_blocks = np.asarray(
-                blocks[:n_prompt] + [0] * (nb_bucket - n_prompt), np.int32)
-            last_logits, self.pool_ks, self.pool_vs = _admit_prefill(
-                self._local, self._to_device(toks), self.pool_ks,
-                self.pool_vs, self._to_device(padded_blocks), self.cfg,
-                self.block_t, true_len=t0)
-            first = int(torch.argmax(last_logits))
-        except BaseException:
-            self.free.extend(reversed(blocks))
-            self._poisoned = ("admission failed while writing the pools; "
-                              "engine state is unrecoverable")
-            raise
-        self.tables[row, :need] = blocks
-        self.tables[row, need:] = 0
-        self.lens[row] = t0
+        with annotate("serve.admit"):
+            toks = np.asarray(list(prompt) + [0] * (t_bucket - t0),
+                              np.int32)[None]
+            blocks = [self.free.pop() for _ in range(need)]
+            try:
+                padded_blocks = np.asarray(
+                    blocks[:n_prompt] + [0] * (nb_bucket - n_prompt),
+                    np.int32)
+                last_logits, self.pool_ks, self.pool_vs = _admit_prefill(
+                    self._local, torch.from_numpy(toks), self.pool_ks,
+                    self.pool_vs, torch.from_numpy(padded_blocks), self.cfg,
+                    self.block_t, true_len=t0)
+                with annotate("serve.admit.first_token"):
+                    first = int(torch.argmax(last_logits))
+            except BaseException:
+                self.free.extend(reversed(blocks))
+                self._poisoned = ("admission failed while writing the "
+                                  "pools; engine state is unrecoverable")
+                raise
+            self.tables[row, :need] = blocks
+            self.tables[row, need:] = 0
+            self.lens[row] = t0
 
-        req = _Request(rid=self._next_rid, row=row,
-                       remaining=max_new_tokens)
-        self._next_rid += 1
-        req.tokens.append(first)
-        req.remaining -= 1
-        req.pending = first
-        self.rows[row] = req
-        if req.remaining == 0:
-            self._finish(req)
+            req = _Request(rid=self._next_rid, row=row,
+                           remaining=max_new_tokens)
+            self._next_rid += 1
+            req.tokens.append(first)
+            req.remaining -= 1
+            req.pending = first
+            self.rows[row] = req
+            if req.remaining == 0:
+                self._finish(req)
         return req.rid
 
     # -- stepping --------------------------------------------------------
@@ -409,6 +433,9 @@ class ServingEngine:
             out[r.rid] = got
             if r.remaining == 0:
                 self._finish(r)
+        ServingEngine.chunks += 1
+        ServingEngine.decode_steps += k
+        ServingEngine.row_steps += k * len(active)
         return out
 
     def _finish(self, req: _Request) -> None:

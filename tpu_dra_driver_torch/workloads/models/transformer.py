@@ -30,6 +30,7 @@ from tpu_dra_driver_torch.workloads.models.quantize import (
 from tpu_dra_driver_torch.workloads.ops.attention import (
     attention_reference, flash_attention,
 )
+from tpu_dra_driver_torch.workloads.utils.profiling import annotate
 from tpu_dra_driver_torch.workloads.utils.timing import (
     chain_seconds_per_step,
 )
@@ -958,7 +959,14 @@ def make_train_step(cfg: ModelConfig,
     shardings of :func:`..parallel.zero1_opt_shardings` (ZeRO-1) or,
     without them, keeps every moment as its param is sharded. On a mesh
     whose axes are all 1 the step computes what the unsharded step
-    computes."""
+    computes.
+
+    Spans (``utils/profiling.py``, recorded while a profile runs):
+    ``train.step`` around the step, with children ``train.forward``
+    (the loss) and ``train.backward`` (its gradient), one pair per
+    microbatch, and ``train.optimizer`` (``opt_state.apply``, the clip
+    included); the three children carry CUDA timing events on the
+    card."""
     opt = optimizer or AdamW(1e-3)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -966,14 +974,17 @@ def make_train_step(cfg: ModelConfig,
     scale = 1.0 if spmd is None or spmd.world == 1 else 1.0 / spmd.world
 
     def loss_and_grads(params, batch, leaves):
-        loss = loss_fn(params, batch, cfg, attn_fn, exit_layer, exit_weight)
-        grads = torch.autograd.grad(loss if scale == 1.0 else loss * scale,
-                                    leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with annotate("train.forward", device=True):
+            loss = loss_fn(params, batch, cfg, attn_fn, exit_layer,
+                           exit_weight)
+        with annotate("train.backward", device=True):
+            grads = torch.autograd.grad(
+                loss if scale == 1.0 else loss * scale, leaves,
+                allow_unused=True, materialize_grads=True)
         return loss.detach(), grads
 
-    def train_step(params, opt_state: Union[OptState, AdafactorState],
-                   batch):
+    def step_body(params, opt_state: Union[OptState, AdafactorState],
+                  batch):
         leaves = opt_state.leaves
         if accum_steps == 1:
             loss, grads = loss_and_grads(params, batch, leaves)
@@ -1002,8 +1013,14 @@ def make_train_step(cfg: ModelConfig,
                 raise ValueError("a sharded step takes the optimizer state "
                                  "of its own init_opt_state")
             grads = opt_state.layout.sync(grads)
-        opt_state.apply(grads)
+        with annotate("train.optimizer", device=True):
+            opt_state.apply(grads)
         return params, opt_state, loss
+
+    def train_step(params, opt_state: Union[OptState, AdafactorState],
+                   batch):
+        with annotate("train.step"):
+            return step_body(params, opt_state, batch)
 
     if spmd is None:
         return train_step, opt.init
