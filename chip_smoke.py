@@ -1042,14 +1042,18 @@ def full_width_phase(card: str, cfg: ModelConfig = FULL) -> dict:
     wall = time.perf_counter() - t0
     launches = pa.paged_decode_attention.launches
     captures, capture_s = StepGraph.captures, StepGraph.capture_seconds
+    # the engine captures decode steps and admissions alike
+    step_graphs = sum(s.graph is not None for s in eng._steps.values())
+    admit_graphs = sum(a.run.graph is not None for a in eng._admits.values())
     peak = torch.cuda.max_memory_allocated()
     outs = [got[rid] for rid in sorted(got)]
     n_tok = sum(len(o) for o in outs)
     print(f"{card}: {n_tok} tokens in {wall:.3f} s wall = "
           f"{n_tok / wall:.1f} tok/s (prefill included), the decode steps "
-          f"replayed from {captures} CUDA graph(s) captured in "
+          f"replayed from {step_graphs} CUDA graph(s) and the admissions "
+          f"from {admit_graphs}, the {captures} captured in "
           f"{1e3 * capture_s:.1f} ms, {n_tok / (wall - capture_s):.1f} "
-          f"tok/s without the capture; peak memory {peak / 2**20:.1f} MiB; "
+          f"tok/s without the captures; peak memory {peak / 2**20:.1f} MiB; "
           f"paged kernel launches {launches}, counted per replay; same "
           f"tokens as the warm-up run: {got == warm}")
     expect = (FULL_NEW_TOKENS - 1) * cfg.n_layers
@@ -1057,9 +1061,11 @@ def full_width_phase(card: str, cfg: ModelConfig = FULL) -> dict:
             len(o) != FULL_NEW_TOKENS or not all(0 <= t < cfg.vocab
                                                  for t in o) for o in outs):
         raise AssertionError("full-width run produced malformed outputs")
-    if got != warm or captures < 1:
+    if got != warm or step_graphs < 1 \
+            or captures != step_graphs + admit_graphs:
         raise AssertionError("full-width run: tokens differ from the "
-                             "warm-up run's, or no graph was captured")
+                             "warm-up run's, no decode step was captured, "
+                             "or captures were made outside the engine")
     if launches != expect:
         raise AssertionError(f"paged kernel launched {launches} times, "
                              f"expected {expect}")

@@ -13,7 +13,8 @@ the CPU, against the reference and against the int-position path.
   wrong position or slot moves the O(0.1) logits by more than 1e-3.
 - ``generate``'s step body (its decode loop, and the ring prefill) and
   the engine's step body, run eagerly n times, give the reference's
-  greedy tokens (identical) and pools (to the tolerance above).
+  greedy tokens (identical) and pools (to the tolerance above); so does
+  the engine's admission body, run once from its device buffers.
 - Both run under :class:`NoHostReads`, which raises where a tensor's
   value is read on the host (``.item()``, ``int()``, ``bool()``): such a
   read of a device value cannot be captured.
@@ -318,3 +319,32 @@ def test_step_graph_runs_the_body_once_per_call_on_the_cpu():
     step = StepGraph(lambda: calls.append(len(calls)) or len(calls), "cpu")
     assert [step() for _ in range(3)] == [1, 2, 3]
     assert step.graph is None and not step.warm
+
+
+@pytest.mark.parametrize("t0", [17, 30])
+def test_engine_admit_body_matches_reference_admission(t0):
+    """The engine's admission body for the bucket (32, 2) of 16-token
+    blocks, run under :class:`NoHostReads` from its device buffers,
+    against the reference's ``_admit_prefill`` at a traced length: the
+    pool blocks to the tolerance above, the first token identical."""
+    jeng, teng = _engines(n_blocks=8, block_t=16, max_batch=1,
+                          max_blocks_per_seq=4)
+    prompt = [int(t) for t in _tokens(9, (t0,))]
+    blocks = [3, 5]
+    toks = np.asarray(prompt + [0] * (32 - t0), np.int32)[None]
+    adm = teng._admission(32, 2)
+    adm.dev["tokens"].copy_(torch.from_numpy(toks))
+    adm.dev["blocks"].copy_(torch.tensor(blocks))
+    adm.dev["true_len"].fill_(t0)
+    with NoHostReads():
+        adm.run()
+    jl, jks, jvs = js._admit_prefill(
+        jeng.params, jnp.asarray(toks), list(jeng.pool_ks),
+        list(jeng.pool_vs), jnp.asarray(blocks, jnp.int32), JCFG, 16,
+        true_len=jnp.int32(t0))
+    assert int(adm.first) == int(np.argmax(np.asarray(jl)))
+    for li in range(JCFG.n_layers):
+        np.testing.assert_allclose(teng.pool_ks[li].numpy()[1:],
+                                   np.asarray(jks[li])[1:], **TOL)
+        np.testing.assert_allclose(teng.pool_vs[li].numpy()[1:],
+                                   np.asarray(jvs[li])[1:], **TOL)

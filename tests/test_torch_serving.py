@@ -10,6 +10,11 @@ O(0.1), so 1e-5 absolute leaves two orders of margin while a wrong mask,
 position or scale moves them by more than 1e-3. Generated tokens must be
 identical. Block 0 (the null block, where inactive rows collide) is
 never compared.
+
+The engine admits through one body per prompt bucket, which the card
+replays as a CUDA graph and the CPU runs eagerly: it is held bit for
+bit to the eager ``_admit_prefill`` and, over whole runs, to
+per-request greedy ``generate``.
 """
 
 import functools
@@ -218,3 +223,70 @@ def test_failed_decode_poisons_engine(monkeypatch):
         eng.step()
     with pytest.raises(RuntimeError, match="poisoned"):
         eng.add([4, 5], 2)
+
+
+# admission through the engine's per-bucket body (a StepGraph, which
+# the CPU runs eagerly): with 32-token blocks, 5, 17 and 32 tokens share
+# the bucket (32, 1) back to back, 33 and 100 take (64, 2) and (128, 4)
+ADMIT_LENS = (5, 17, 32, 33, 100)
+ADMIT_KW = dict(n_blocks=24, block_t=32, max_batch=5, max_blocks_per_seq=4)
+
+
+def test_admission_body_equals_the_eager_admit_prefill():
+    """Each admission leaves the pools bit-equal to ``_admit_prefill``
+    run eagerly from the same pools into the same blocks, and its first
+    token is the argmax of that call's logits."""
+    _, tp = _params()
+    eng = ts.ServingEngine(tp, TCFG, device="cpu", **ADMIT_KW)
+    for prompt in _prompts(6, ADMIT_LENS):
+        t0 = len(prompt)
+        t_bucket = max(32, 1 << (t0 - 1).bit_length())
+        n_prompt = -(-t0 // 32)
+        nb_bucket = 1 << (n_prompt - 1).bit_length()
+        ks = [p.clone() for p in eng.pool_ks]
+        vs = [p.clone() for p in eng.pool_vs]
+        rid = eng.add(prompt, 4)
+        row = next(r.row for r in eng.rows if r is not None and r.rid == rid)
+        blocks = list(eng.tables[row, :n_prompt]) + [0] * (nb_bucket -
+                                                           n_prompt)
+        toks = np.asarray(prompt + [0] * (t_bucket - t0), np.int32)[None]
+        logits, ks, vs = ts._admit_prefill(
+            tp, torch.from_numpy(toks), ks, vs,
+            torch.tensor(blocks, dtype=torch.int32), TCFG, 32, true_len=t0)
+        assert eng.rows[row].tokens == [int(torch.argmax(logits))]
+        for li in range(TCFG.n_layers):
+            assert torch.equal(eng.pool_ks[li], ks[li])
+            assert torch.equal(eng.pool_vs[li], vs[li])
+    assert sorted(eng._admits) == [(32, 1), (64, 2), (128, 4)]
+    assert all(isinstance(a.run, ts.StepGraph)
+               for a in eng._admits.values())
+
+
+def test_engine_run_through_the_admission_body_matches_generate():
+    """``run`` admits every prompt through the bucket bodies (rows free
+    up and the (32, 1) bucket is reused) and gives per-request greedy
+    ``generate``'s tokens."""
+    _, tp = _params()
+    prompts = _prompts(7, ADMIT_LENS)
+    eng = ts.ServingEngine(tp, TCFG, device="cpu",
+                           **dict(ADMIT_KW, max_batch=2))
+    got = eng.run(prompts, max_new_tokens=6)
+    want = [ts.generate(tp, TCFG, torch.tensor([p], dtype=torch.int32),
+                        steps=6)[0, len(p):].tolist() for p in prompts]
+    assert [got[rid] for rid in sorted(got)] == want
+
+
+@pytest.mark.parametrize("last", [0, 6, 12])
+def test_block_prefill_reads_a_device_last_index_as_the_int(last):
+    _, tp = _params()
+    tokens = torch.tensor(_prompts(8, [13, 13]), dtype=torch.int32)
+    got = {}
+    for key, index in (("int", last),
+                       ("tensor", torch.tensor(last, dtype=torch.int64))):
+        cache = ts.init_kv_cache(TCFG, 2, 13, device="cpu")
+        got[key] = ts.block_prefill(tp, TCFG, cache, tokens,
+                                    last_index=index)
+    assert torch.equal(got["int"][0], got["tensor"][0])
+    for which in ("k", "v"):
+        for a, b in zip(got["int"][1][which], got["tensor"][1][which]):
+            assert torch.equal(a, b)

@@ -235,9 +235,10 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
     """Fill the KV cache from a whole [b, t0] prompt in one forward and
     return (logits [b, vocab] at the last position, cache, t0).
     ``prefix_lm=True`` makes the prompt bidirectional. ``last_index``
-    (causal only) reads the logits at that position instead of the last:
-    a prompt right-padded to a bucket reads them at its real last
-    token. ``mesh``: see the module's docstring."""
+    (causal only; an int or a 0-d integer tensor on the tokens' device,
+    never read on the host) reads the logits at that position instead of
+    the last: a prompt right-padded to a bucket reads them at its real
+    last token. ``mesh``: see the module's docstring."""
     if last_index is not None and prefix_lm:
         raise ValueError("last_index requires causal prefill (prefix_lm "
                          "treats the padded length as the prefix)")
@@ -282,6 +283,8 @@ def block_prefill(params: Params, cfg: ModelConfig, cache: Dict,
 
     if last_index is None:
         x = x[:, -1:]
+    elif isinstance(last_index, torch.Tensor):
+        x = x.index_select(1, last_index.reshape(1))
     else:
         li_ = int(last_index)
         x = x[:, li_:li_ + 1]

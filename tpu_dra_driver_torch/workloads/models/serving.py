@@ -16,6 +16,11 @@ and finished requests free their blocks.
   card (the reference scans ``paged_decode_steps`` in one dispatch), the
   body itself on the CPU: tables, lens, tokens and the chunk's output
   live in static device buffers, copied in once and out once per chunk.
+  Its admissions are :meth:`_admit_body` likewise, one CUDA graph per
+  ``(t_bucket, nb_bucket)`` (the reference jits one per bucket shape):
+  the padded prompt, its blocks and its length in static device
+  buffers, the prefill, the pool writes and the first token's argmax in
+  one replay.
 
 Under a (dp, tp) mesh (``mesh=``) the params are this rank's ``tp``
 shards as ``parallel.param_shardings`` places them and the pools hold
@@ -27,13 +32,17 @@ runs the same requests and picks the same tokens as one device.
 
 Spans (``utils/profiling.py`` ``annotate``, recorded while a profile
 runs): ``serve.admit`` around ``add``, with children
-``serve.admit.prefill`` (the copies to the device and the batch-1
-``block_prefill``), ``serve.admit.pool_write`` (the 2 x n_layers block
-writes) and ``serve.admit.first_token`` (the host's read of the first
-token, which waits for the card). Counters, over every engine of the
-process and always on, as ``StepGraph.captures``: ``chunks``,
-``decode_steps`` (the sum of the chunks' k) and ``row_steps`` (the sum
-of k x active rows).
+``serve.admit.prefill`` (the copies to the bucket's buffers and the
+admission body's launch: a replay, or on a bucket's first use the eager
+body with its batch-1 ``block_prefill`` and 2 x n_layers block writes),
+``serve.admit.pool_write`` (the host's part of the block writes: the
+row's table and length) and
+``serve.admit.first_token`` (the host's read of the first token, which
+waits for the card). Counters, over every engine of the process and
+always on, as ``StepGraph.captures``: ``chunks``, ``decode_steps`` (the
+sum of the chunks' k), ``row_steps`` (the sum of k x active rows),
+``admits`` (admissions that reached the device) and ``admit_replays``
+(of them, those a captured graph's replay served).
 
 The pools are updated in place (the reference donates them to each jit
 call instead), so a call that fails part-way leaves them in an unknown
@@ -46,7 +55,7 @@ state: any exception raised by the device work of ``add``, ``step`` or
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,37 +172,49 @@ def _admit_prefill(params, tokens, pool_ks, pool_vs, blocks,
 
     ``tokens`` [1, t_bucket] and ``blocks`` [nb_bucket] are padded to
     buckets by the engine, and are copied to the pools' device first
-    where they are not there; ``true_len`` puts the logits on the real
-    last token (causality shields it from the right-padding). The padded
-    tail's K/V land past the written blocks, in slots that lens hides
-    and the next appends overwrite, or in the null block (padded table
-    entries are 0), which nothing reads.
+    where they are not there; ``true_len`` (an int, or a 0-d integer
+    tensor on that device, the reference's traced length, never read on
+    the host) puts the logits on the real last token (causality shields
+    it from the right-padding). The padded tail's K/V land past the
+    written blocks, in slots that lens hides and the next appends
+    overwrite, or in the null block (padded table entries are 0), which
+    nothing reads.
     ``params`` may be a ``generate.Local``; ``mesh``: see the module's
     docstring."""
     t0 = tokens.shape[1]
     nb = blocks.shape[0]
     params = local_params(params, cfg, mesh)
-    with annotate("serve.admit.prefill"):
-        device = pool_ks[0].device
-        tokens, blocks = tokens.to(device), blocks.to(device)
-        cache = init_kv_cache(
-            cfg, 1, t0, device=device,
-            mesh=None if params.spmd is None else params.spmd.mesh)
-        last_logits, cache, _ = block_prefill(
-            params, cfg, cache, tokens,
-            last_index=None if true_len is None else int(true_len) - 1)
-    with annotate("serve.admit.pool_write"):
-        blocks = blocks.long()
-        for li in range(cfg.n_layers):
-            for pool, kv in ((pool_ks[li], cache["k"][li][0]),
-                             (pool_vs[li], cache["v"][li][0])):
-                h_kv, length, hd = kv.shape        # [h_kv, Lpad, hd]
-                pad = nb * block_t - length
-                if pad > 0:
-                    kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
-                tiles = kv[:, :nb * block_t].reshape(h_kv, nb, block_t, hd)
-                pool[blocks] = tiles.transpose(0, 1).to(pool.dtype)
+    device = pool_ks[0].device
+    tokens, blocks = tokens.to(device), blocks.to(device).long()
+    cache = init_kv_cache(
+        cfg, 1, t0, device=device,
+        mesh=None if params.spmd is None else params.spmd.mesh)
+    last_logits, cache, _ = block_prefill(
+        params, cfg, cache, tokens,
+        last_index=None if true_len is None else true_len - 1)
+    for li in range(cfg.n_layers):
+        for pool, kv in ((pool_ks[li], cache["k"][li][0]),
+                         (pool_vs[li], cache["v"][li][0])):
+            h_kv, length, hd = kv.shape            # [h_kv, Lpad, hd]
+            pad = nb * block_t - length
+            if pad > 0:
+                kv = torch.nn.functional.pad(kv, (0, 0, 0, pad))
+            tiles = kv[:, :nb * block_t].reshape(h_kv, nb, block_t, hd)
+            pool[blocks] = tiles.transpose(0, 1).to(pool.dtype)
     return last_logits, pool_ks, pool_vs
+
+
+@dataclass
+class _Admission:
+    """One admission bucket of an engine: the pinned host buffers, their
+    static device copies that the body reads (``tokens`` [1, t_bucket]
+    int32, ``blocks`` [nb_bucket] int64, ``true_len`` 0-d int64), the
+    body's output (the first token, 0-d int64 on the device) and the
+    :class:`StepGraph` that runs the body."""
+    host: Dict[str, torch.Tensor]
+    dev: Dict[str, torch.Tensor]
+    first: torch.Tensor
+    run: StepGraph
 
 
 @dataclass
@@ -217,6 +238,8 @@ class ServingEngine:
     chunks = 0
     decode_steps = 0
     row_steps = 0
+    admits = 0
+    admit_replays = 0
 
     def __init__(self, params: Params, cfg: ModelConfig, n_blocks: int,
                  block_t: int = 128, max_batch: int = 8,
@@ -262,6 +285,7 @@ class ServingEngine:
         self._col = torch.zeros((), dtype=torch.int64, device=self.device)
         self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self._steps: Dict[int, StepGraph] = {}
+        self._admits: Dict[Tuple[int, int], _Admission] = {}
         self.rows: List[Optional[_Request]] = [None] * max_batch
         self._next_rid = 0
         self.finished: Dict[int, List[int]] = {}
@@ -316,27 +340,35 @@ class ServingEngine:
             t_bucket = min(t_bucket, self.cfg.max_seq)
         nb_bucket = max(1, 1 << (n_prompt - 1).bit_length())
         with annotate("serve.admit"):
-            toks = np.asarray(list(prompt) + [0] * (t_bucket - t0),
-                              np.int32)[None]
             blocks = [self.free.pop() for _ in range(need)]
             try:
-                padded_blocks = np.asarray(
-                    blocks[:n_prompt] + [0] * (nb_bucket - n_prompt),
-                    np.int32)
-                last_logits, self.pool_ks, self.pool_vs = _admit_prefill(
-                    self._local, torch.from_numpy(toks), self.pool_ks,
-                    self.pool_vs, torch.from_numpy(padded_blocks), self.cfg,
-                    self.block_t, true_len=t0)
+                adm = self._admission(t_bucket, nb_bucket)
+                with annotate("serve.admit.prefill"):
+                    toks = adm.host["tokens"].numpy()
+                    toks[0, :t0] = prompt
+                    toks[0, t0:] = 0
+                    adm.host["blocks"].numpy()[:] = \
+                        blocks[:n_prompt] + [0] * (nb_bucket - n_prompt)
+                    adm.host["true_len"].fill_(t0)
+                    for name, buf in adm.dev.items():
+                        buf.copy_(adm.host[name], non_blocking=True)
+                    replay = adm.run.graph is not None
+                    adm.run()
+                with annotate("serve.admit.pool_write"):
+                    self.tables[row, :need] = blocks
+                    self.tables[row, need:] = 0
+                    self.lens[row] = t0
                 with annotate("serve.admit.first_token"):
-                    first = int(torch.argmax(last_logits))
+                    first = int(adm.first)
             except BaseException:
                 self.free.extend(reversed(blocks))
+                self.tables[row] = 0
+                self.lens[row] = 0
                 self._poisoned = ("admission failed while writing the "
                                   "pools; engine state is unrecoverable")
                 raise
-            self.tables[row, :need] = blocks
-            self.tables[row, need:] = 0
-            self.lens[row] = t0
+            ServingEngine.admits += 1
+            ServingEngine.admit_replays += replay
 
             req = _Request(rid=self._next_rid, row=row,
                            remaining=max_new_tokens)
@@ -348,6 +380,49 @@ class ServingEngine:
             if req.remaining == 0:
                 self._finish(req)
         return req.rid
+
+    def _admission(self, t_bucket: int, nb_bucket: int) -> _Admission:
+        """The admission bucket ``(t_bucket, nb_bucket)``, made at its
+        first use. Its body runs under a :class:`StepGraph` in the
+        decode steps' graph pool (an admission and a decode step never
+        run at once, and the first token is read before anything else
+        replays): on a card the bucket's first admission warms it up,
+        its second captures it, later ones replay."""
+        adm = self._admits.get((t_bucket, nb_bucket))
+        if adm is None:
+            cuda = self.device.type == "cuda"
+            host = {"tokens": torch.zeros((1, t_bucket), dtype=torch.int32,
+                                          pin_memory=cuda),
+                    "blocks": torch.zeros((nb_bucket,), dtype=torch.int64,
+                                          pin_memory=cuda),
+                    "true_len": torch.zeros((), dtype=torch.int64,
+                                            pin_memory=cuda)}
+            dev = {k: torch.zeros_like(v, device=self.device)
+                   for k, v in host.items()}
+            first = torch.zeros((), dtype=torch.int64, device=self.device)
+            body = self._admit_body(dev, first)
+            adm = self._admits[(t_bucket, nb_bucket)] = _Admission(
+                host, dev, first,
+                StepGraph(body, self.device, pool=self._graph_pool))
+        return adm
+
+    def _admit_body(self, dev: Dict[str, torch.Tensor], first: torch.Tensor):
+        """One admission as a function of no arguments, for
+        :class:`StepGraph`: the prefill of ``dev["tokens"]``, its K/V
+        written to the pool blocks ``dev["blocks"]``, and the argmax of
+        the logits at ``dev["true_len"] - 1`` written to ``first``, all
+        on the device."""
+        # the engine's tensors, not the engine (see _step_body)
+        params, cfg, pool_ks, pool_vs, block_t = (
+            self._local, self.cfg, self.pool_ks, self.pool_vs, self.block_t)
+
+        def body():
+            logits, _, _ = _admit_prefill(
+                params, dev["tokens"], pool_ks, pool_vs, dev["blocks"], cfg,
+                block_t, true_len=dev["true_len"])
+            first.copy_(torch.argmax(logits))
+
+        return body
 
     # -- stepping --------------------------------------------------------
     def _step_body(self, n_live_blocks: int):
